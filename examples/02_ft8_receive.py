@@ -8,12 +8,9 @@ import sys
 # runnable from a source checkout without installing
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from orion_sdr_tpu.runtime import use_compile_cache  # noqa: E402
 
-# default to CPU (works everywhere); set ORION_SDR_TPU_EXAMPLES_TPU=1 to run
-# on an attached TPU instead
-if not os.environ.get("ORION_SDR_TPU_EXAMPLES_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+use_compile_cache()
 
 import numpy as np
 import orion_sdr_tpu as sdr
@@ -24,7 +21,7 @@ FS = 12_000.0
 def main():
     ht = sdr.CallsignHashTable()
     rng = np.random.default_rng(0)
-    calls = ["KA1ABC", "W9XYZ", "K5TPU"]
+    calls = ["KA1ABC", "W9XYZ", "K5GPU"]
     windows = []
     for i, call in enumerate(calls):
         payload = sdr.pack77(sdr.Ft8Standard("CQ", call, "FN42"), ht)

@@ -1,7 +1,7 @@
 """Scale-out: shard SDR pipelines over a device mesh.
 
 Demonstrates the three sharding shapes of the framework on a virtual
-8-device CPU mesh (identical code runs on a real TPU slice):
+8-device CPU mesh (the same code runs on a mesh of GPUs):
 
 1. channel-parallel — many independent receivers, no collectives;
 2. time-parallel streaming state — one fast PSK31 stream whose AFC/PLL
@@ -20,6 +20,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
+
+from orion_sdr_tpu.runtime import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 import numpy as np
 import orion_sdr_tpu as sdr

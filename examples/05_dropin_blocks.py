@@ -1,4 +1,4 @@
-"""Drop-in Block-style classes: reference call sites, TPU-native compute.
+"""Drop-in Block-style classes: reference call sites, batched JAX compute.
 
 Users of the reference's Python API (`orion_sdr`) construct stateful Block
 classes and stream captures through `.process()`. The same code runs here —
@@ -12,10 +12,9 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from orion_sdr_tpu.runtime import use_compile_cache  # noqa: E402
 
-if not os.environ.get("ORION_SDR_TPU_EXAMPLES_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+use_compile_cache()
 
 import numpy as np
 import orion_sdr_tpu as sdr

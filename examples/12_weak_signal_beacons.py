@@ -10,10 +10,9 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from orion_sdr_tpu.runtime import use_compile_cache  # noqa: E402
 
-if not os.environ.get("ORION_SDR_TPU_EXAMPLES_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+use_compile_cache()
 
 import numpy as np
 import orion_sdr_tpu as sdr

@@ -11,17 +11,16 @@ for that end-to-end proof):
    LNAV subframes (IS-GPS-200 parity), decode it back, place the
    satellite on its orbit, and solve a 5-satellite position fix.
 
-Run: python examples/13_gps_receiver.py   (CPU or TPU)
+Run: python examples/13_gps_receiver.py   (CPU or GPU)
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
+from orion_sdr_tpu.runtime import use_compile_cache  # noqa: E402
 
-if not os.environ.get("ORION_SDR_TPU_EXAMPLES_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+use_compile_cache()
 
 import numpy as np
 import orion_sdr_tpu as sdr

@@ -1,7 +1,8 @@
-"""orion_sdr_tpu — a TPU-native SDR/DSP framework (JAX/XLA/Pallas).
+"""orion_sdr_tpu — an SDR/DSP framework in JAX, run on NVIDIA GPUs.
 
 Brand-new implementation of the capability set of the reference library
-``skynavga/orion-sdr`` (single-core Rust block graph), re-designed TPU-first:
+``skynavga/orion-sdr`` (single-core Rust block graph), re-designed for
+batched accelerator arrays:
 
 * signals are batched arrays with the time axis last; blocks are pure
   functions ``y, state = f(x, ..., state)`` with explicit carried state;
@@ -9,8 +10,8 @@ Brand-new implementation of the capability set of the reference library
   associative scans; genuinely data-dependent loops (AGC, PLLs, Viterbi)
   are ``lax.scan`` batched over channels;
 * FIR/FFT/mixing/tone-search are whole-capture fused XLA ops (waterfalls and
-  matched filters ride the MXU as matmuls); hot irregular kernels use Pallas
-  (orion_sdr_tpu.ops);
+  matched filters are matmuls); the one hand-written kernel, the Viterbi
+  trellis, is CUDA behind a JAX FFI call (orion_sdr_tpu.ops);
 * multi-device scaling shards channels and time-blocks over a
   ``jax.sharding.Mesh`` with halo exchange (orion_sdr_tpu.parallel).
 

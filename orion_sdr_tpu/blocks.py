@@ -2,7 +2,7 @@
 
 The reference exposes its `Block` impls as stateful classes
 (`FmQuadratureDemod(fs, dev_hz, audio_bw_hz).process(iq)`, …) registered in
-src/python/{modulate,demodulate,ft8,psk31,ofdm}.rs. The TPU-native compute
+src/python/{modulate,demodulate,ft8,psk31,ofdm}.rs. The batched compute
 lives in this package's batched functional API; these wrappers carry the
 streaming state between `process()` calls so reference users can switch
 without rewriting call sites. Constructor signatures mirror the reference

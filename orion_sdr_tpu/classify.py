@@ -281,8 +281,8 @@ def band_decode(iq, fs: float, **survey_kwargs) -> List[BandDecodeEntry]:
     Cost note: each segment is channelized twice (once for classification
     in band_survey, once at the decoder's preferred rate) and segments run
     sequentially — segments generally need different output rates, which
-    is what keeps this from being one batched program. On the relay
-    backend that is ~2 boundary crossings per segment."""
+    is what keeps this from being one batched program: about 2 device
+    calls per segment."""
     from .dsp.channelizer import Channelizer
     z = np.asarray(iq)
     out: List[BandDecodeEntry] = []

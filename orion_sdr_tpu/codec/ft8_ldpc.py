@@ -4,7 +4,7 @@ from the public ft8_lib / WSJT-X protocol definition, MIT).
 N=174 codeword bits, K=91 info (77 payload + 14 CRC), M=83 checks. The code
 is systematic: codeword = [message | parity].
 
-TPU design: encode is one (83,91) GF(2) matmul (batched over frames, MXU);
+Design: encode is one (83,91) GF(2) matmul (batched over frames);
 decode reuses the shared dense-padded belief-propagation engine
 (fec/ldpc.py::bp_decode) over the sparse Tanner graph (max check degree 7),
 vmappable over candidates — the BASELINE.json config-3 workload decodes many

@@ -259,7 +259,7 @@ def ft4_decode_multi_frame(frames, fs: float = 12000.0,
 # CRC-passing candidate): decode EVERY signal in a crowded window by
 # re-synthesizing each decoded frame, least-squares fitting it to the
 # received IQ, subtracting it, and re-running sync on the residual — the
-# WSJT-X multi-pass subtraction loop, batched TPU-style (re-synthesis is the
+# WSJT-X multi-pass subtraction loop, batched (re-synthesis is the
 # runtime-tone CPFSK device path; the per-symbol complex fit is one
 # matmul-shaped reduction).
 

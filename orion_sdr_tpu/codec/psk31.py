@@ -6,7 +6,7 @@ G0 = 0o25 = 0b10101, G1 = 0o23 = 0b10011. For input x[n] the coded pair is
 (no tail termination — PSK31 is a continuous stream). The trellis has 16
 states (the 4 most recent inputs, newest at bit 3).
 
-TPU design: the encoder is a pure shift-XOR (vectorized numpy). The batch
+Design: the encoder is a pure shift-XOR (vectorized numpy). The batch
 Viterbi decoders are a `lax.scan` over symbols with all 16 states' ACS
 vectorized per step (and `jax.vmap`-able over independent candidate streams);
 throughput comes from batching candidates, not from parallelizing within the

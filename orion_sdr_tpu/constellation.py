@@ -5,7 +5,7 @@ demodulate/{bpsk,qpsk,qam}.rs: per-axis independent Gray coding, unit average
 symbol energy (axis scale = 1/sqrt(2(M²−1)/3)), bit layout per symbol =
 BITS/2 I-axis bits MSB-first then BITS/2 Q-axis bits MSB-first.
 
-TPU design: mapping is a table gather over packed bit indices; deciding is a
+Design: mapping is a table gather over packed bit indices; deciding is a
 broadcast threshold count + gray encode + bit unpack — all whole-capture
 vectorized ops (no per-symbol loops). Soft LLRs are exact max-log over the
 per-axis 1-D constellation (each bit's LLR = min distance² difference),
@@ -86,8 +86,8 @@ def map_bits(bits, order: str):
         im = jnp.where((b[..., 1] & 1) == 0, s, -s)
         return (re + 1j * im).astype(jnp.complex64)
     # amplitude = (2·gray_decode(idx) + 1 − m)·scale, computed arithmetically
-    # (prefix-XOR Gray decode): a per-element table gather is VPU-serial on
-    # TPU and measured ~90× slower than this elementwise form.
+    # (prefix-XOR Gray decode): elementwise arithmetic instead of a
+    # per-element table gather.
     m = 1 << k
     scale = axis_scale(bps)
     i_idx = _pack_bits_msb(b[..., :k], k)

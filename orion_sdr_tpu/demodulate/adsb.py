@@ -2,7 +2,7 @@
 matched filter → candidate starts → per-chip integrate → PPM bit decisions
 → CRC-gated DF17 decode → CPR pairing.
 
-TPU design: the envelope, the preamble correlation, and the per-chip sums
+Design: the envelope, the preamble correlation, and the per-chip sums
 for EVERY candidate run as batched device programs; only the top-k
 candidate selection and the bit/CRC layer are host-side. The CRC-24 is the
 real detector — preamble correlation only ranks candidates, so the

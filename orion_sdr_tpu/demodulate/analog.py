@@ -1,6 +1,6 @@
 """Analog demodulators: CW / AM / SSB / FM / PM.
 
-TPU-native versions of /root/reference/src/demodulate/{cw,am,ssb,fm,pm}.rs.
+Batched JAX versions of the reference's src/demodulate/{cw,am,ssb,fm,pm}.rs.
 Every per-sample IIR loop becomes a parallel scan; the quadrature
 discriminators are one fused elementwise pass (delay-conjugate product +
 arctan2 — we use exact arctan2 instead of the reference's 5th-order minimax
@@ -80,7 +80,7 @@ def am_demod(iq, fs, audio_bw_hz, method="power_sqrt", abs_k=(0.947543636291, 0.
     """AM envelope demod (ref: demodulate/am.rs:9-46).
 
     ``power_sqrt``: LP4(|z|²) → sqrt → DC block (highest fidelity).
-    ``abs_approx``: k1·|I| + k2·|Q| → LP4 → DC block (cheaper; on TPU both
+    ``abs_approx``: k1·|I| + k2·|Q| → LP4 → DC block (cheaper; here both
     are one fused pass, the option is kept for output parity).
     """
     z = jnp.asarray(iq)

@@ -2,7 +2,7 @@
 
 Dechirp × FFT: multiplying by the conjugate base upchirp turns every
 symbol into a pure tone at shift·bw/2^SF, so the whole frame demodulates
-as ONE batched FFT over symbol windows (ideal MXU/FFT work). Acquisition:
+as ONE batched FFT over symbol windows. Acquisition:
 slide the symbol grid over up to one symbol of offsets, find the run of
 consistent preamble tones; the two downchirp sync symbols (which dechirp
 to noise against the up reference but to a tone against the down

@@ -59,7 +59,7 @@ def fde_equalize(iq, training, block: int = 256, noise_var: float = 1e-3):
     the channel by correlating against a known ``training`` burst at the
     capture start, then apply the MMSE inverse per overlap-save block.
 
-    TPU design: channel estimate = one FFT ratio; equalization = batched
+    Design: channel estimate = one FFT ratio; equalization = batched
     FFT → elementwise MMSE weight → IFFT with 50% overlap-save. Returns
     the equalized capture (same length, training included)."""
     t = np.asarray(training)

@@ -78,8 +78,8 @@ class DvbTSuperFrameDemod:
                      frame_payload_lens) -> DvbTRxSuperFrame:
         """Single-acquisition batched receive: the four frames of one
         super-frame are contiguous, so ONE GI sync aligns them all and ONE
-        (sub-batched) fused receive program demaps all four — vs the
-        per-frame path's 4 sync + 4 receive relay round-trips. Payload FEC
+        fused receive program demaps all four — vs the per-frame path's
+        4 syncs + 4 receive calls. Payload FEC
         still runs per frame (lengths may differ). Same result as decode,
         and the same contract: the capture starts at the super-frame
         (sub-symbol timing jitter is absorbed by the GI sync; arbitrary
@@ -88,7 +88,7 @@ class DvbTSuperFrameDemod:
         from ..sync.dvb_t_gi_sync import dvb_t_gi_sync
         from ..waveform.dvb_t_tps import (TPS_SYMBOLS_PER_FRAME, TpsWord,
                                           tps_decode_frame)
-        from .dvb_t_frame import _receive_frame, _MAX_DEVICE_BATCH
+        from .dvb_t_frame import _receive_frame
 
         iq = np.asarray(iq)
         cp_len = guard_cp_len_2k(self.params.link.guard)
@@ -109,15 +109,8 @@ class DvbTSuperFrameDemod:
         segs = iq[start: start + total].reshape(
             DVB_T_FRAMES_PER_SUPER_FRAME, frame_samples)
         vbits = BITS_PER_SYMBOL[self.params.link.constellation]
-        llrs_parts, cells_parts = [], []
-        for i in range(0, len(segs), _MAX_DEVICE_BATCH):
-            l, c = _receive_frame(segs[i:i + _MAX_DEVICE_BATCH],
-                                  symbols_per_frame, cp_len,
-                                  self.rx_window_backoff, vbits)
-            llrs_parts.append(np.asarray(l))
-            cells_parts.append(np.asarray(c))
-        llrs = np.concatenate(llrs_parts)
-        cells = np.concatenate(cells_parts)
+        llrs, cells = _receive_frame(segs, symbols_per_frame, cp_len,
+                                     self.rx_window_backoff, vbits)
 
         payloads = []
         frame_numbers = []

@@ -2,7 +2,7 @@
 
 The reference runs a Goertzel correlator per (symbol, tone) and argmaxes.
 Here the whole frame is ONE matmul: reshape to (n_syms, sps), multiply by the
-(sps, n_tones) tone-phasor matrix, |·|², argmax — pure MXU work, batchable
+(sps, n_tones) tone-phasor matrix, |·|², argmax — pure matmul work, batchable
 over frames via leading dims.
 """
 

@@ -3,13 +3,13 @@
 Decision-feedback matched filtering over the full symbol period with a
 first-order decision-directed PLL (AFC, K = 0.05) at each symbol boundary.
 
-TPU design: the reference runs a per-sample loop
+Design: the reference runs a per-sample loop
     corrected[n] = s[n] − prev_sym·(1−h[n]);   acc += h[n]·corrected[n]
 but the feedback term is linear in prev_sym, so the whole symbol integral
 collapses to
     sym = (⟨h, s_k⟩ − prev_sym·Σh(1−h)) · gain / Σh²
 The heavy part ⟨h, s_k⟩ for all symbols is ONE matmul of the reshaped
-(n_syms, sps) capture against the Hann window — MXU work — leaving only a
+(n_syms, sps) capture against the Hann window — one matmul — leaving only a
 light per-symbol `lax.scan` for the PLL/feedback recurrence (batch across
 channels/candidates via vmap for throughput, per SURVEY §7).
 """
@@ -58,7 +58,7 @@ def _dfm_core(z, sps: int, gain: float, qpsk: bool,
     """
     seg = z.reshape(z.shape[:-1] + (-1, sps))
     h = jnp.asarray(psk31_hann(sps))
-    dots = seg @ h.astype(seg.real.dtype)   # (..., n_syms) — the MXU matmul
+    dots = seg @ h.astype(seg.real.dtype)   # (..., n_syms) — the matmul
     return _pll_scan(dots, sps, gain, qpsk, prev_sym0, phase_acc0)
 
 

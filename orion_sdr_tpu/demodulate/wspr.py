@@ -2,7 +2,7 @@
 time/frequency search on the published sync chips, then per-symbol 4-tone
 energies → sequential decode.
 
-TPU design: the WHOLE search grid's tone energies come from one batched
+Design: the WHOLE search grid's tone energies come from one batched
 program — mix the capture by each frequency candidate, slice each time
 candidate's 162-symbol window, and correlate every symbol against the 4
 tone phasors as one einsum."""

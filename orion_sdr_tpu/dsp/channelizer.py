@@ -2,7 +2,7 @@
 
 One batched device program extracts C baseband channels from a wideband
 capture: per-channel mix (a (C, N) elementwise complex rotate), one
-batched anti-alias FIR (MXU/overlap-save convolution shared across the
+batched anti-alias FIR (conv/overlap-save convolution shared across the
 channel batch), decimate to the channel rate. Carried mixer phases and
 filter tails make it chunk-boundary invariant; adding channels widens the
 batch instead of adding passes. The gateway front end for the band

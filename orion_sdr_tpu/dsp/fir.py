@@ -1,10 +1,10 @@
 """FIR design + application.
 
 Design functions run at trace time in numpy and produce constant tap arrays
-(the TPU equivalent of the reference's FirLowpass::design / Kaiser helpers,
+(the equivalent of the reference's FirLowpass::design / Kaiser helpers,
 /root/reference/src/dsp/fir.rs:8-157). Application is a batched convolution
-that XLA lowers to the conv/MXU path — one fused kernel over the whole
-capture instead of a per-sample circular-buffer walk.
+that XLA lowers to a conv or an FFT overlap-save — one fused program over
+the whole capture instead of a per-sample circular-buffer walk.
 
 Streaming: every apply function accepts/returns an explicit tail ``state``
 (the last ``ntaps-1`` inputs), which is exactly the halo exchanged between
@@ -14,7 +14,6 @@ devices when a long capture is time-sharded (overlap-save).
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -105,15 +104,11 @@ def group_delay(taps) -> int:
 # ── Application (JAX) ────────────────────────────────────────────────────────
 
 
-_MXU_BLOCK = 1024          # output block per Toeplitz matmul tile
-_MXU_MIN_N = 8192           # below this, XLA conv wins (less padding overhead)
-_MXU_MAX_TAPS = 512         # above this the Toeplitz tile gets too tall
-
-# Measured on v5e (64ch × 1M f32): XLA conv ≈ 4.5/3.0/1.7 Gsps at 31/63/127
-# taps and falls ~1/T; FFT overlap-save is flat ≈ 1.0 Gsps. Crossover ≈ 160.
+# Taps from which the FFT overlap-save path replaces the XLA conv. The
+# crossover was chosen on earlier hardware and is not measured on the H100
+# yet (ROADMAP Q1 item 9).
 _FFT_MIN_TAPS = 160
 _FFT_BLOCK = 65536
-_USE_TOEPLITZ = False
 
 
 def _fft_overlap_save(x, taps):
@@ -145,8 +140,8 @@ def _fft_overlap_save(x, taps):
 def _fft_overlap_save_bank(x, w):
     """Batched VALID correlation with PER-CHANNEL kernels: ``x`` (C, N),
     ``w`` (C, K) numpy → (C, N−K+1). One rfft/irfft triple for the whole
-    bank — a single-channel overlap-save call is latency-bound on TPU
-    (~1.5 ms regardless of size), so C separate calls cost C× that."""
+    bank — a single-channel overlap-save call is dispatch-bound, so C
+    separate calls would cost C× that."""
     w = np.asarray(w, np.float32)
     K = w.shape[-1]
     n_out = x.shape[-1] - (K - 1)
@@ -216,54 +211,21 @@ def fir_filter_aligned_bank(pairs):
     return out
 
 
-def _toeplitz_weight(taps, block: int) -> np.ndarray:
-    """W[k, j] = taps[T−1−k+j] — causal-FIR block matmul weight
-    ((block+T−1) × block)."""
-    taps = np.asarray(taps, np.float32)
-    T = len(taps)
-    W = np.zeros((block + T - 1, block), np.float32)
-    for j in range(block):
-        W[j:j + T, j] = taps[::-1]
-    return W
-
-
 def _conv_valid_f32(x, taps):
     """Correlate (..., n) float32 with taps; VALID padding.
 
     y[i] = sum_j taps[j] * x[i + ntaps-1 - j]  (causal FIR over pre-padded x).
 
-    Two lowerings: an XLA conv for short inputs, and — the hot path — a
-    Toeplitz block matmul that runs on the MXU at precision=HIGHEST
-    (float32-exact, ~3× the conv path's throughput on v5e).
+    Two lowerings: FFT overlap-save from ``_FFT_MIN_TAPS`` taps on (whose
+    cost does not grow with the tap count, and whose compile time stays
+    small where an XLA conv's grows with the kernel size), an XLA conv
+    below.
     """
     t = np.asarray(taps, dtype=np.float32)
     T = len(t)
     n_out = x.shape[-1] - (T - 1)
-    # Long taps ALWAYS take the FFT path, regardless of input length: the
-    # XLA conv lowering's compile time explodes with kernel size on the TPU
-    # backend (measured on-chip: T=255 first call 160 s, T=967 stalls 40+
-    # min — the round-3 FM stereo/RDS chip stall; the overlap-save program
-    # compiles+runs the same shapes in ~3 s).
     if T >= _FFT_MIN_TAPS and n_out > 0:
         return _fft_overlap_save(x, t)
-    # Toeplitz-matmul path: measured SLOWER than the XLA conv on v5e at every
-    # tested tap count (the tile is (B+T−1)/T× redundant), kept opt-in for
-    # hardware where the conv lowering is weak.
-    if _USE_TOEPLITZ and n_out >= _MXU_MIN_N and T <= _MXU_MAX_TAPS:
-        B = _MXU_BLOCK
-        lead = x.shape[:-1]
-        xb = x.reshape((-1, x.shape[-1]))
-        nblk = -(-n_out // B)
-        pad = nblk * B + T - 1 - x.shape[-1]
-        if pad:
-            xb = jnp.pad(xb, ((0, 0), (0, pad)))
-        idx = np.arange(nblk)[:, None] * B + np.arange(B + T - 1)[None, :]
-        blocks = xb[:, idx]                                   # (b, nblk, B+T−1)
-        W = jnp.asarray(_toeplitz_weight(t, B))
-        y = jnp.einsum("cbk,kj->cbj", blocks, W,
-                       preferred_element_type=jnp.float32,
-                       precision=jax.lax.Precision.HIGHEST)
-        return y.reshape(lead + (nblk * B,))[..., :n_out]
     lead = x.shape[:-1]
     xb = x.reshape((-1, 1, x.shape[-1]))
     k = jnp.asarray(t)[::-1].reshape((1, 1, -1))

@@ -69,7 +69,7 @@ def biquad_init(lead_shape, dtype=jnp.float32) -> BiquadState:
                        x_tail=jnp.zeros(lead_shape + (2,), dtype))
 
 
-_BQ_CHUNK = 128   # MXU-aligned chunk for the real-Toeplitz fast path
+_BQ_CHUNK = 128   # chunk length of the real-Toeplitz fast path
 
 
 @_lru_cache(maxsize=64)

@@ -5,8 +5,8 @@ centers), the PFB extracts ALL C uniformly spaced channels with ONE
 prototype filter + ONE batched FFT per output step: cost is independent
 of the channel count.
 
-TPU design: the polyphase accumulation is a single einsum over the tap
-phases (MXU work), the channel transform one batched FFT — the whole
+Design: the polyphase accumulation is a single einsum over the tap
+phases (a matmul), the channel transform one batched FFT — the whole
 bank is two fused device ops regardless of C.
 
 Critically sampled analysis bank: channel c is centered at c·fs/C

@@ -1,10 +1,11 @@
-"""Parallel linear recurrences — the TPU-native substrate for IIR state.
+"""Parallel linear recurrences — the batched substrate for IIR state.
 
 The reference library (orion-sdr) runs every IIR filter, DC blocker, and
 one-pole envelope as a per-sample Rust loop (e.g. /root/reference/src/dsp/iir.rs,
-dsp/dc.rs). On TPU a sequential per-sample loop is the one thing we must not
-do: instead, every *linear* recurrence is evaluated as a parallel prefix via
-``jax.lax.associative_scan`` (O(log n) depth, fully vectorized on the VPU).
+dsp/dc.rs). On an accelerator a sequential per-sample loop is the one thing
+we must not do: instead, every *linear* recurrence is evaluated as a
+parallel prefix via ``jax.lax.associative_scan`` (O(log n) depth, fully
+vectorized).
 
 Conventions
 -----------
@@ -42,7 +43,7 @@ def _first_order_assoc(a, b, y0=None):
 
 _CHUNK = 8192  # cap associative-scan working set; scan chunks sequentially
 
-_GEOM_CHUNK = 128   # MXU-aligned chunk for the triangular-matmul fast path
+_GEOM_CHUNK = 128   # chunk length of the triangular-matmul fast path
 
 
 def _first_order_const(a, b, y0):
@@ -51,10 +52,10 @@ def _first_order_const(a, b, y0):
     A stable-pole recurrence is a geometric convolution, and within a chunk
     of C samples the zero-state response is ONE triangular matmul:
         zs[k] = Σ_{j≤k} a^(k−j)·b[j]  =  (b @ L)[k],  L[j,k] = a^(k−j)
-    — pure MXU work with all entries ≤ 1 (no rescale, no range hazard).
+    — pure matmul work with all entries ≤ 1 (no rescale, no range hazard).
     Chunk boundaries chain through a tiny associative scan with coefficient
     a^C over n/C terms. Two passes over the data instead of the full
-    associative scan's ~6 — the VPU-bound IIR cascades are traffic-limited.
+    associative scan's ~6 — the IIR cascades are memory-traffic-limited.
     """
     b = jnp.asarray(b)
     n = b.shape[-1]

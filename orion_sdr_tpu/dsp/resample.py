@@ -3,11 +3,11 @@ changer is the integer ``FirDecimator``, dsp/decim.rs:10-77).
 
 ``resample`` / ``Resampler`` change the sample rate by any rational up/down
 (48 kHz → 44.1 kHz is 147/160, symbol-rate matching, fractional decimation
-of wideband captures). TPU design: upfirdn is ONE XLA
+of wideband captures). Design: upfirdn is ONE XLA
 ``conv_general_dilated`` call — ``lhs_dilation=up`` zero-stuffs the input
 inside the conv (never materializing the ×up stream), ``window_strides=down``
 decimates the output, and the anti-image/anti-alias Kaiser lowpass rides the
-MXU conv path. Streaming is chunk-boundary invariant: the carried state is
+conv path. Streaming is chunk-boundary invariant: the carried state is
 the input tail plus the output-grid phase, exactly the halo a time-sharded
 long capture would exchange.
 """

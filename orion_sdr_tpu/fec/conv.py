@@ -4,15 +4,17 @@ Mother codes: K5 (G0=0o25, G1=0o23 — also PSK31's code, codec/psk31.rs:45) and
 DvbK7 (G0=0o171, G1=0o133, ETSI EN 300 744 §4.3.3). Zero-tail termination,
 standard DVB/802.11 puncture matrices for rates 2/3, 3/4, 5/6, 7/8.
 
-TPU design:
+Design:
 * encode — a rate-1/2 convolutional encoder is two binary FIR convolutions
   (XOR-dot of the generator taps over the bit stream): one batched int conv,
   no sequential register.
 * puncture/depuncture — precomputed boolean masks (trace-time numpy),
   applied as gathers/scatters.
-* Viterbi — ACS as a lax.scan over trellis steps with all 2^(K−1) states
-  updated as one vectorized max; decisions recorded per step, then a cheap
-  reverse scan traceback. Batch over codewords via leading axes.
+* Viterbi — ``viterbi_trellis`` decodes batches of trellis lanes: on a GPU
+  with the warp-per-lane kernel in ops/viterbi_cuda.cu, elsewhere with the
+  plain form, an ACS lax.scan over trellis steps (all 2^(K−1) states as one
+  vectorized max, decisions recorded per step) and a reverse-scan
+  traceback. Both give the same bits.
 Branch metric = LLR correlation Σ(1−2c)·llr, maximized (positive ⇒ bit 0).
 """
 
@@ -142,78 +144,124 @@ def depuncture_llrs(coded_llrs, info_bits: int, rate: str, code: str = "k5"):
     return out.at[..., keep_idx[:n]].set(l[..., :n])
 
 
+_NEG = -1e30           # "unreachable" path metric
+
+
 @cjit
 def viterbi_decode_soft(coded_llrs, info_bits: int, rate: str = "1/2",
                         code: str = "k5"):
     """Soft Viterbi over a zero-tail-terminated punctured stream
     (ref: conv.rs:262-348). Returns (..., info_bits) uint8.
 
-    This is the jnp scan form (arbitrary leading batch axes). Long streams
-    should use viterbi_decode_soft_chunked, which dispatches to the Pallas
-    whole-trellis-in-VMEM kernel on TPU; for short trellises the scan is
-    already MXU/VPU-bound and the kernel shows no advantage (the kernel's
-    iota-masked column selects are O(T²), fine at the fixed chunk span but
-    not for arbitrary T)."""
+    Arbitrary leading batch axes; the trellis runs through
+    ``viterbi_trellis`` (the Hopper kernel on a GPU, the scan elsewhere).
+    Long streams should use viterbi_decode_soft_chunked."""
     return _viterbi_decode_soft_jnp(jnp.asarray(coded_llrs), info_bits,
                                     rate, code)
 
 
 def _viterbi_decode_soft_jnp(coded_llrs, info_bits: int, rate: str = "1/2",
                              code: str = "k5"):
-    K, S, top, _, _, prev, sign0, sign1 = _tables(code)
+    S = _tables(code)[1]
     full = depuncture_llrs(coded_llrs, info_bits, rate, code)
-    lead = full.shape[:-1]
-    n_steps = info_bits + tail_bits(code)
-    l0 = full[..., 0::2]  # (..., n_steps)
-    l1 = full[..., 1::2]
+    pm0 = jnp.full(full.shape[:-1] + (S,), _NEG).at[..., 0].set(0.0)
+    bits = viterbi_trellis(full[..., 0::2], full[..., 1::2], pm0, code,
+                           terminated=True)
+    return bits[..., :info_bits]
+
+
+def _trellis_scan(l0, l1, pm0, code: str, terminated: bool):
+    """Plain ACS + traceback as two ``lax.scan``s: (..., T) LLR planes and
+    (..., S) initial metrics → (..., T) uint8 bits.
+
+    ``terminated``: zero-tail trellis, traceback from state 0, metrics
+    left as they grow. Otherwise (a chunk of a long stream) metrics are
+    renormalized every step and the traceback starts at the lowest-index
+    best final state."""
+    _, S, top, _, _, prev, sign0, sign1 = _tables(code)
     prev_j = jnp.asarray(prev)       # (S, 2)
     s0 = jnp.asarray(sign0)
     s1 = jnp.asarray(sign1)
-    neg_inf = jnp.float32(-1e30)
-
-    pm0 = jnp.full(lead + (S,), neg_inf).at[..., 0].set(0.0)
 
     def acs(pm, ls):
         la, lb = ls
-        cand = pm[..., prev_j] + s0 * la[..., None, None] + s1 * lb[..., None, None]
+        cand = pm[..., prev_j] + s0 * la[..., None, None] \
+            + s1 * lb[..., None, None]
         dec = jnp.argmax(cand, axis=-1)          # (..., S)
         new_pm = jnp.max(cand, axis=-1)
+        if not terminated:
+            new_pm = new_pm - jnp.max(new_pm, axis=-1, keepdims=True)
         return new_pm, dec.astype(jnp.uint8)
 
-    lt0 = jnp.moveaxis(l0, -1, 0)
-    lt1 = jnp.moveaxis(l1, -1, 0)
-    _, decs = jax.lax.scan(lambda pm, ls: acs(pm, ls), pm0, (lt0, lt1))
-    # decs: (n_steps, ..., S)
+    pm, decs = jax.lax.scan(acs, jnp.asarray(pm0, jnp.float32),
+                            (jnp.moveaxis(l0, -1, 0),
+                             jnp.moveaxis(l1, -1, 0)))
 
     def traceback(state, dec_t):
         bit = (state >> top) & 1
-        z = jnp.take_along_axis(dec_t, state[..., None], axis=-1)[..., 0].astype(jnp.int32)
-        nxt = prev_j[state, z]
-        return nxt, bit
+        z = jnp.take_along_axis(dec_t, state[..., None],
+                                axis=-1)[..., 0].astype(jnp.int32)
+        return prev_j[state, z], bit
 
-    state0 = jnp.zeros(lead, jnp.int32)
+    if terminated:
+        state0 = jnp.zeros(pm.shape[:-1], jnp.int32)
+    else:
+        state0 = jnp.argmax(pm, axis=-1).astype(jnp.int32)
     _, bits_rev = jax.lax.scan(traceback, state0, decs[::-1])
-    bits = jnp.moveaxis(bits_rev[::-1], 0, -1)
-    return bits[..., :info_bits].astype(jnp.uint8)
+    return jnp.moveaxis(bits_rev[::-1], 0, -1).astype(jnp.uint8)
+
+
+def viterbi_trellis(l0, l1, pm0, code: str, terminated: bool):
+    """Decode trellis lanes: (..., T) LLR planes (g0 and g1 outputs per
+    step, positive ⇒ bit 0) and (..., S) initial metrics → (..., T) uint8.
+    The implementation is ``ops.viterbi.trellis_impl``'s choice."""
+    from ..ops.viterbi import trellis_impl, trellis_cuda
+    l0 = jnp.asarray(l0, jnp.float32)
+    l1 = jnp.asarray(l1, jnp.float32)
+    c = CONV_CODES[code]
+    if trellis_impl(l0.shape[-1], c["K"]) == "scan":
+        return _trellis_scan(l0, l1, pm0, code, terminated)
+    lead, T = l0.shape[:-1], l0.shape[-1]
+    S = _tables(code)[1]
+    bits = trellis_cuda(l0.reshape(-1, T), l1.reshape(-1, T),
+                        jnp.asarray(pm0, jnp.float32).reshape(-1, S),
+                        c["K"], c["g0"], c["g1"], terminated)
+    return bits.reshape(lead + (T,))
 
 
 _CHUNK_STEPS = 1024     # trellis steps per parallel chunk
 _CHUNK_OVERLAP = 96     # ≥ 5·(K−1) convergence margin each side
 
 
+def chunk_lanes(l0, l1, n_chunks: int):
+    """Cut (B, V + n_chunks·C + V) margin-padded LLR planes into
+    (B, n_chunks, C + 2V) overlapping chunk lanes."""
+    C, V = _CHUNK_STEPS, _CHUNK_OVERLAP
+    idx = (np.arange(n_chunks) * C)[:, None] + np.arange(C + 2 * V)[None, :]
+    return l0[..., idx], l1[..., idx]
+
+
+def chunk_start_metrics(S: int, n_chunks: int, pinned):
+    """(n_chunks, S) initial metrics: chunk 0 pinned at state 0 where
+    ``pinned`` (a bool, or a traced scalar), every other chunk uniform."""
+    pin = jnp.full((S,), _NEG).at[0].set(0.0)
+    first = (jnp.arange(n_chunks)[:, None] == 0) & pinned
+    return jnp.where(first, pin[None, :], jnp.zeros((1, S)))
+
+
 @cjit
 def viterbi_decode_soft_chunked(coded_llrs, info_bits: int, rate: str = "1/2",
                                 code: str = "dvb_k7"):
-    """Overlap-chunked soft Viterbi for LONG streams (the TPU-native form).
+    """Overlap-chunked soft Viterbi for LONG streams.
 
     A 90k-step trellis is inherently sequential; chopping it into
     ``_CHUNK_STEPS``-step chunks with ``_CHUNK_OVERLAP`` warm-up/cool-down
-    margins turns the decode into ONE batched scan over ~1.2k steps — the
+    margins turns the decode into ONE batched trellis over ~1.2k steps — the
     standard fixed-lag approximation (margin ≫ 5·K ⇒ outputs match the full
     Viterbi except in pathological near-tie cases; the outer RS/CRC
     adjudicates regardless). First chunk pins state 0; others start uniform.
     """
-    K, S, top, _, _, prev, sign0, sign1 = _tables(code)
+    S = _tables(code)[1]
     full = depuncture_llrs(coded_llrs, info_bits, rate, code)
     n_steps = info_bits + tail_bits(code)
     l0 = full[..., 0::2]
@@ -230,54 +278,10 @@ def viterbi_decode_soft_chunked(coded_llrs, info_bits: int, rate: str = "1/2",
     # pad tail with zero LLRs (erasures)
     l0p = jnp.pad(l0, ((0, 0), (V, total - n_steps + V)))
     l1p = jnp.pad(l1, ((0, 0), (V, total - n_steps + V)))
-    span = C + 2 * V
-    starts = np.arange(nchunk) * C
-    idx = starts[:, None] + np.arange(span)[None, :]
-    c0 = l0p[:, idx]                    # (nb, nchunk, span)
-    c1 = l1p[:, idx]
-
-    if jax.default_backend() == "tpu":
-        # hot path: whole-trellis-in-VMEM Pallas kernel over the chunk lanes
-        from ..ops.viterbi import viterbi_chunks_pallas
-        pm0 = np.zeros((nb, nchunk, S), np.float32)
-        pm0[:, 0] = -1e30
-        pm0[:, 0, 0] = 0.0              # chunk 0 pinned at state 0
-        bits = viterbi_chunks_pallas(c0.reshape(nb * nchunk, span),
-                                     c1.reshape(nb * nchunk, span),
-                                     pm0.reshape(nb * nchunk, S), code)
-        mid = bits.reshape(nb, nchunk, span)[:, :, V:V + C].reshape(nb, -1)
-        out = mid[:, :info_bits].astype(jnp.uint8)
-        return out if batched else out[0]
-
-    prev_j = jnp.asarray(prev)
-    s0 = jnp.asarray(sign0)
-    s1 = jnp.asarray(sign1)
-    neg_inf = jnp.float32(-1e30)
-    # chunk 0 starts pinned at state 0; others uniform
-    pm0 = jnp.zeros((nb, nchunk, S), jnp.float32)
-    pm0 = pm0.at[:, 0].set(jnp.full((S,), neg_inf).at[0].set(0.0))
-
-    def acs(pm, ls):
-        la, lb = ls
-        cand = pm[..., prev_j] + s0 * la[..., None, None] + s1 * lb[..., None, None]
-        dec = jnp.argmax(cand, axis=-1)
-        new_pm = jnp.max(cand, axis=-1)
-        new_pm = new_pm - jnp.max(new_pm, axis=-1, keepdims=True)
-        return new_pm, dec.astype(jnp.uint8)
-
-    lt0 = jnp.moveaxis(c0, -1, 0)       # (span, nb, nchunk)
-    lt1 = jnp.moveaxis(c1, -1, 0)
-    pm, decs = jax.lax.scan(acs, pm0, (lt0, lt1))   # decs: (span, nb, nchunk, S)
-
-    def traceback(state, dec_t):
-        bit = (state >> top) & 1
-        z = jnp.take_along_axis(dec_t, state[..., None], axis=-1)[..., 0].astype(jnp.int32)
-        nxt = prev_j[state, z]
-        return nxt, bit
-
-    state0 = jnp.argmax(pm, axis=-1).astype(jnp.int32)   # per chunk
-    _, bits_rev = jax.lax.scan(traceback, state0, decs[::-1])
-    bits = jnp.moveaxis(bits_rev[::-1], 0, -1)           # (nb, nchunk, span)
+    c0, c1 = chunk_lanes(l0p, l1p, nchunk)          # (nb, nchunk, span)
+    pm0 = jnp.broadcast_to(chunk_start_metrics(S, nchunk, True),
+                           (nb, nchunk, S))
+    bits = viterbi_trellis(c0, c1, pm0, code, terminated=False)
     mid = bits[:, :, V:V + C].reshape(nb, -1)            # drop the margins
-    out = mid[:, :info_bits].astype(jnp.uint8)
+    out = mid[:, :info_bits]
     return out if batched else out[0]

@@ -9,8 +9,8 @@ These are byte/bit-domain algebraic codes — low-rate control-path work, per
 the build plan (SURVEY.md §7.7) implemented host-side in numpy with
 vectorized syndrome/Chien evaluation (table gathers) and *batch-vectorized*
 LFSR encoders (the per-step loop runs once, every codeword in the batch
-advances together). The interface is pure so the hot cases can later be
-lowered to int8 TPU gathers without API change.
+advances together). The interface is pure so the hot cases can later move
+to the device without API change (fec/bch_device.py).
 """
 
 from __future__ import annotations

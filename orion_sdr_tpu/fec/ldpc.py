@@ -6,9 +6,9 @@ reference's per-code seeds), so TX here decodes on the reference and vice
 versa. Codes: N512R12 (512,256), N576R23 (576,384), N512R34 (512,384),
 column weight 3.
 
-TPU design:
+Design:
 * encode — parity = cumulative-XOR of A·msg row sums: one int matmul
-  (batched over codewords, MXU) + a parity prefix scan.
+  (batched over codewords) + a parity prefix scan.
 * decode — belief propagation over a *dense padded* Tanner graph: the
   check→bit incidence is a (M, max_deg) index array + mask, so the
   check-node update is a leave-one-out product over a fixed tiny axis and
@@ -102,7 +102,8 @@ class LdpcGraph:
 
 @lru_cache(maxsize=None)
 def ldpc_graph(name: str) -> LdpcGraph:
-    """Construct (and cache — the TPU CodecCache equivalent) a code's graph."""
+    """Construct (and cache — the reference's CodecCache equivalent) a
+    code's graph."""
     n, k, seed = LDPC_CODES[name]
     m = n - k
     cols = _build_msg_col_rows(k, m, seed)
@@ -171,12 +172,6 @@ def _syndrome_weight(g: LdpcGraph, hard_padded):
 
 _FIRST_PASS_ITERS = 12
 
-# rules with a Pallas TPU kernel (ops/ldpc_bp.py) — the reference's full
-# decode-rule set (ldpc_codes.rs:98-105), so its FAST rules (min-sum ~1.7×,
-# scaled-min-sum ~2.6× sum-product, ref docs/performance.md:377-399) run on
-# the fast path here too
-_KERNEL_RULES = ("sum_product", "min_sum", "scaled_min_sum")
-
 
 def ldpc_decode(name: str, llr, max_iter: int = 50, rule: str = "sum_product",
                 alpha: float = 0.75):
@@ -186,18 +181,13 @@ def ldpc_decode(name: str, llr, max_iter: int = 50, rule: str = "sum_product",
     (message (..., K) uint8, unsat (...,) int32) — 0 unsatisfied checks means
     a valid codeword was reached.
 
-    Two-stage batch early exit (XLA path only): bp_decode's in-device exit
-    only fires when EVERY codeword converges, so one straggler pins the
-    whole batch at max_iter. Host strategy: a 12-iteration first pass (the
-    typical operating point converges in <10), then ONLY the
-    still-unsatisfied rows re-decode at full depth — padded to power-of-two
-    row counts so the second pass hits a handful of compiled shapes. ~4× at
-    clean-channel batches; single codewords and traced callers take the
-    one-shot path. On the TPU backend the Pallas kernel's per-tile early
-    exit + per-row stall detection make the one-shot call as cheap as the
-    first pass, so the two-stage would only add a ~100 ms relay boundary —
-    kernel-rule batches (sum_product/min_sum/scaled_min_sum) go one-shot
-    there.
+    Two-stage batch early exit: bp_decode's in-device exit only fires when
+    EVERY codeword converges, so one straggler pins the whole batch at
+    max_iter. Host strategy: a 12-iteration first pass (the typical
+    operating point converges in <10), then ONLY the still-unsatisfied rows
+    re-decode at full depth — padded to power-of-two row counts so the
+    second pass hits a handful of compiled shapes. Single codewords and
+    traced callers take the one-shot path.
     """
     import jax.core
     g = ldpc_graph(name)
@@ -206,11 +196,6 @@ def ldpc_decode(name: str, llr, max_iter: int = 50, rule: str = "sum_product",
         lead = np.shape(llr)[:-1]
         return (np.zeros(lead + (g.k,), np.uint8),
                 np.zeros(lead, np.int32))
-    if (rule in _KERNEL_RULES and np.ndim(llr) == 2
-            and jax.default_backend() == "tpu"):
-        from ..ops.ldpc_bp import bp_graph_fits
-        if bp_graph_fits(_graph_key(g)):
-            return bp_decode(g, llr, max_iter, rule, alpha)
     if (isinstance(llr, jax.core.Tracer) or max_iter <= _FIRST_PASS_ITERS
             or np.ndim(llr) < 2):
         return bp_decode(g, llr, max_iter, rule, alpha)
@@ -234,26 +219,23 @@ def ldpc_decode(name: str, llr, max_iter: int = 50, rule: str = "sum_product",
 
 
 @lru_cache(maxsize=None)
-def _edge_matrices(graph_key: str):
-    """Constant one-hot operators turning BP's gathers/scatters into MXU
-    matmuls (the TPU-shaped form — scatter-adds are VPU-serial on TPU):
-      S (E, N+1): scatter edges→bits (bit_totals = ext_flat @ S)
-      Sᵀ (N+1, E): gather bits→edges (msg = total @ Sᵀ, reshaped (m, D))
-      C (N+1, m): per-check bit-sum for the syndrome (exact in f32: row sums
-      ≤ max_deg ≪ 2²⁴).
-    Keyed by graph name (LdpcGraph isn't hashable by content)."""
+def _bit_edges(graph_key: str) -> np.ndarray:
+    """(N, max_col_deg) edge ids of each bit (edge e = check·D + slot),
+    padded with E — the index of an always-zero slot appended to the
+    flattened edge messages, so a bit's message sum is one gather + sum."""
     g = _GRAPH_BY_KEY[graph_key]
     E = g.m * g.max_deg
     flat_bits = g.check_bits.reshape(-1)
-    S = np.zeros((E, g.n + 1), np.float32)
-    S[np.arange(E), flat_bits] = 1.0
-    # dummy column n absorbs padded lanes; exclude it from the syndrome
-    C = np.zeros((g.n + 1, g.m), np.float32)
+    flat_mask = g.check_mask.reshape(-1)
+    per_bit = [[] for _ in range(g.n)]
     for e in range(E):
-        b = flat_bits[e]
-        if b < g.n and g.check_mask.reshape(-1)[e]:
-            C[b, e // g.max_deg] = 1.0
-    return S, S.T.copy(), C
+        if flat_mask[e]:
+            per_bit[flat_bits[e]].append(e)
+    deg = max(len(es) for es in per_bit)
+    table = np.full((g.n, deg), E, np.int32)
+    for b, es in enumerate(per_bit):
+        table[b, :len(es)] = es
+    return table
 
 
 _GRAPH_BY_KEY: dict = {}
@@ -275,6 +257,28 @@ def _loo_prod(t):
     return left * right
 
 
+def _check_update(msg, mask, rule: str, alpha: float):
+    """Check-node update: (..., m, D) bit→check messages → check→bit
+    extrinsics, 0 on padded lanes."""
+    if rule == "sum_product":
+        t = jnp.where(mask, _fast_tanh(msg / 2.0), 1.0)
+        ext = 2.0 * _fast_atanh(jnp.clip(_loo_prod(t), -1.0, 1.0))
+    else:
+        a = jnp.where(mask, jnp.abs(msg), jnp.inf)
+        sign = jnp.where(mask & (msg < 0), -1.0, 1.0)
+        sign_par = jnp.prod(sign, axis=-1, keepdims=True)
+        min1 = jnp.min(a, axis=-1, keepdims=True)
+        argmin = jnp.argmin(a, axis=-1)
+        # second smallest: mask out the argmin lane
+        onehot = jax.nn.one_hot(argmin, msg.shape[-1], dtype=bool)
+        min2 = jnp.min(jnp.where(onehot, jnp.inf, a), axis=-1, keepdims=True)
+        mag = jnp.where(onehot, min2, min1)
+        s_other = sign_par * sign  # sign product excluding own edge
+        scale = alpha if rule == "scaled_min_sum" else 1.0
+        ext = scale * s_other * mag
+    return jnp.where(mask, ext, 0.0)
+
+
 @cjit
 def bp_decode(g: LdpcGraph, llr, max_iter: int = 50, rule: str = "sum_product",
               alpha: float = 0.75):
@@ -286,40 +290,28 @@ def bp_decode(g: LdpcGraph, llr, max_iter: int = 50, rule: str = "sum_product",
     ldpc_codes.rs:357-366, lifted to the batch) — typical operating points
     converge in <10 iterations, so this is worth ~5× over a fixed 50.
 
-    On the TPU backend, 2-D batches of every rule dispatch to the Pallas
-    kernels (ops/ldpc_bp.py) that keep the edge messages VMEM-resident
-    across all iterations; traced/1-D callers use this XLA path. Note:
-    the kernels contract in bf16 (f32 accumulate), so TPU and CPU decode
-    trajectories may differ on near-threshold codewords — both converge to
-    the same codeword on decodable inputs."""
+    Edge messages move by index: bit → edges through ``check_bits``, and
+    edges → per-bit sums through ``_bit_edges`` (a gather and a sum, no
+    scatter)."""
     llr = jnp.asarray(llr, dtype=jnp.float32)
-    if (rule in _KERNEL_RULES and llr.ndim == 2
-            and jax.default_backend() == "tpu"):
-        from ..ops.ldpc_bp import bp_decode_pallas, bp_graph_fits
-        key = _graph_key(g)
-        if bp_graph_fits(key):
-            best, mu = bp_decode_pallas(key, llr, max_iter, interpret=False,
-                                        rule=rule, alpha=alpha)
-            return best[:, :g.k].astype(jnp.uint8), mu
     mask = jnp.asarray(g.check_mask)               # (m, D)
     D = g.max_deg
     lead = llr.shape[:-1]
-    S_np, St_np, C_np = _edge_matrices(_graph_key(g))
-    S = jnp.asarray(S_np)                          # (E, N+1)
-    St = jnp.asarray(St_np)                        # (N+1, E)
-    C = jnp.asarray(C_np)                          # (N+1, m)
-    hi = jax.lax.Precision.HIGHEST
+    flat_bits = jnp.asarray(g.check_bits.reshape(-1))
+    bit_edges = jnp.asarray(_bit_edges(_graph_key(g)))   # (N, col_deg)
 
     def pad(x):
         return jnp.concatenate([x, jnp.zeros(lead + (1,), x.dtype)], axis=-1)
 
     def syndrome(hard):
-        s = jnp.matmul(hard.astype(jnp.float32), C[:g.n], precision=hi)
-        return jnp.sum(jnp.rint(s).astype(jnp.int32) & 1, axis=-1)
+        return _syndrome_weight(g, pad(hard))
 
     def gather_edges(total_p):
-        e = jnp.matmul(total_p, St, precision=hi)
-        return e.reshape(lead + (g.m, D))
+        return total_p[..., flat_bits].reshape(lead + (g.m, D))
+
+    def bit_sums(ext):
+        flat = ext.reshape(lead + (-1,))
+        return jnp.sum(pad(flat)[..., bit_edges], axis=-1)
 
     llr_p = pad(llr)
     hard0 = (llr <= 0.0).astype(jnp.int32)
@@ -328,37 +320,17 @@ def bp_decode(g: LdpcGraph, llr, max_iter: int = 50, rule: str = "sum_product",
     # edge messages live as (..., m, D); padded lanes carry +inf-ish neutral
     msg0 = jnp.where(mask, gather_edges(llr_p), 1e30)
 
-    def check_update(msg):
-        if rule == "sum_product":
-            t = jnp.where(mask, _fast_tanh(msg / 2.0), 1.0)
-            ext = 2.0 * _fast_atanh(jnp.clip(_loo_prod(t), -1.0, 1.0))
-        else:
-            a = jnp.where(mask, jnp.abs(msg), jnp.inf)
-            sign = jnp.where(mask & (msg < 0), -1.0, 1.0)
-            sign_par = jnp.prod(sign, axis=-1, keepdims=True)
-            min1 = jnp.min(a, axis=-1, keepdims=True)
-            argmin = jnp.argmin(a, axis=-1)
-            # second smallest: mask out the argmin lane
-            onehot = jax.nn.one_hot(argmin, D, dtype=bool)
-            min2 = jnp.min(jnp.where(onehot, jnp.inf, a), axis=-1, keepdims=True)
-            mag = jnp.where(onehot, min2, min1)
-            s_other = sign_par * sign  # sign product excluding own edge
-            scale = alpha if rule == "scaled_min_sum" else 1.0
-            ext = scale * s_other * mag
-        return jnp.where(mask, ext, 0.0)
-
     def body(carry):
         i, msg, best, min_unsat = carry
-        ext = check_update(msg)
-        sums = jnp.matmul(ext.reshape(lead + (-1,)), S, precision=hi)
-        total = llr_p + sums                         # (..., N+1)
-        hard = (total[..., :g.n] <= 0.0).astype(jnp.int32)
+        ext = _check_update(msg, mask, rule, alpha)
+        total = llr + bit_sums(ext)                  # (..., N)
+        hard = (total <= 0.0).astype(jnp.int32)
         unsat = syndrome(hard)
         better = unsat < min_unsat
         best = jnp.where(better[..., None], hard, best)
         min_unsat = jnp.where(better, unsat, min_unsat)
         # variable→check: msg = total[bit] − ext (own edge excluded)
-        msg_new = jnp.where(mask, gather_edges(total) - ext, 1e30)
+        msg_new = jnp.where(mask, gather_edges(pad(total)) - ext, 1e30)
         return i + 1, msg_new, best, min_unsat
 
     def cond(carry):

@@ -3,7 +3,7 @@
 Fibonacci LFSR: feedback = parity of tapped bits, shift right, feedback into
 top bit; PN bit = register bit 0; data bits LSB-first per byte. Self-inverse.
 
-TPU design: the PN byte stream for (taps, width, seed, length) is a pure
+Design: the PN byte stream for (taps, width, seed, length) is a pure
 function — generated once host-side (cached) and XORed as one vectorized op.
 The streaming variant carries the register as explicit state.
 """

@@ -5,7 +5,7 @@ receives ONE link at baseband. A gateway receiver sees a wideband capture
 carrying many COFDM channels at known centers; here the
 :class:`~orion_sdr_tpu.dsp.channelizer.Channelizer` extracts every
 channel in ONE batched device program and only the per-channel
-acquire/decode drivers run on host. TPU-native throughput scaling:
+acquire/decode loops run on host. Throughput scaling:
 adding channels widens the batch, it does not add passes.
 """
 

@@ -5,9 +5,8 @@ device-program conventions to the classic SDR correlator workload).
 The acquisition search — every PRN x every Doppler bin x every code phase —
 is ONE device program: carrier wipe, per-ms FFTs, a conjugate code-spectrum
 product, inverse FFTs and a non-coherent sum, batched over the (PRN,
-Doppler) grid. On the MXU this turns the textbook serial correlator bank
-into a dense batched-FFT product, which is exactly the shape TPUs are
-built for.
+Doppler) grid. This turns the textbook serial correlator bank into a
+dense batched-FFT product.
 
 Wire compatibility: the C/A Gold-code generator (G1 = 1+x^3+x^10,
 G2 = 1+x^2+x^3+x^6+x^8+x^9+x^10, per-PRN G2 tap pairs) is validated

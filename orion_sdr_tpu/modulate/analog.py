@@ -1,6 +1,6 @@
 """Analog modulators: CW / AM / SSB / FM / PM.
 
-TPU-native versions of /root/reference/src/modulate/{cw,am,ssb,fm,pm}.rs.
+Batched JAX versions of the reference's src/modulate/{cw,am,ssb,fm,pm}.rs.
 Each modulator is a pure whole-capture function; phase accumulators become
 cumulative sums, the per-sample phasor recurrences become exact phase ramps,
 and the SSB phasing filters run as parallel-scan biquad cascades. Streaming

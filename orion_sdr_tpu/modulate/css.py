@@ -4,7 +4,7 @@ LoRa is NOT claimed; this is the open CSS PHY: SF bits per symbol as a
 cyclic shift of a linear chirp, preamble of base upchirps + two downchirp
 sync symbols, 16-bit CRC on the payload.
 
-TPU design: every chirp is one slice of a precomputed quadratic phase
+Design: every chirp is one slice of a precomputed quadratic phase
 ramp (cyclic shift = index arithmetic); the whole frame synthesizes as a
 single cumulative-phase program.
 """

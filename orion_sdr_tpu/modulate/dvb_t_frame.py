@@ -3,7 +3,7 @@ ETSI EN 300 744). Preamble-less: TS packets + energy dispersal → RS(204,188)
 + K=7 conv + Forney I=12 → Figure-9a mapping through the four-phase
 scattered-pilot grid → TPS DBPSK on the 17 reserved carriers → IFFT + CP.
 
-TPU design: the whole frame is one batched tensor program — map all symbols'
+Design: the whole frame is one batched tensor program — map all symbols'
 bits at once, one vectorized grid scatter, one (n_sym, 2048) IFFT — no
 per-symbol loop.
 """

@@ -9,7 +9,7 @@ with audio level a = 0.9, pilot p = 0.09, RDS r = 0.05 by default. The
 phasor, so TX and RX phase references cancel exactly (the RX derives its
 subcarrier references from the received pilot the same way).
 
-TPU design: the whole composite is one batched elementwise program; the
+Design: the whole composite is one batched elementwise program; the
 RDS Manchester waveform indexes its differential bit stream with a
 time-derived gather (no per-bit loop)."""
 

@@ -4,7 +4,7 @@ FT8: 8-FSK, 6.25 baud, 1920 samples/symbol @ 12 kHz, 79 symbols
 (3×7 Costas + 58 data) = 151 680 samples. FT4: 4-FSK, 576 samples/symbol,
 105 symbols (2 ramps + 4×4 Costas + 87 data) = 60 480 samples.
 
-TPU design: the reference's per-sample phasor recurrence (with renorm) is a
+Design: the reference's per-sample phasor recurrence (with renorm) is a
 closed form — within symbol k the phase is θ_k + (n+1)·φ_k where φ_k is the
 tone's per-sample increment and θ_k = Σ_{j<k} sps·φ_j. The per-symbol phase
 origins are an exact float64 cumsum over ≤105 symbols (host), and the sample

@@ -5,7 +5,7 @@ between the previous and current phasor, differential phase encoding
 (bit 0 = phase change, bit 1 = no change); QPSK31 adds the rate-1/2 K=5
 convolutional code.
 
-TPU design: the reference's per-sample write_symbol loop becomes one outer
+Design: the reference's per-sample write_symbol loop becomes one outer
 product — phasor sequences are cumulative products over symbols (exact for
 the ±1/±j alphabet), and the crossfade is
     samples[k, n] = p[k-1]·(1−h[n]) + p[k]·h[n]

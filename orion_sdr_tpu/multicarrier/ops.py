@@ -4,7 +4,7 @@ The reference processes one symbol per call through Block objects
 (/root/reference/src/multicarrier/{grid,fft,cyclic_prefix,symbol_window,
 symbol_fft}.rs). Here a frame of N symbols is a single batched tensor op:
 scatter → ifft → CP concat → taper is one fused XLA graph over
-``(..., n_symbols, n_fft)`` — the MXU/VPU-friendly formulation.
+``(..., n_symbols, n_fft)`` — the batched formulation.
 
 FFT conventions match the reference (docs/ofdm.md:22-35): unity forward,
 1/N-folded inverse (numpy's default), natural bin order internally.
@@ -37,8 +37,7 @@ def grid_map(grid: CarrierGrid, data_symbols, pilot_bins=None, pilot_values=None
 
     if isinstance(pb, np.ndarray) or pb is None or isinstance(pb, (list, tuple)):
         # Static pilot layout → ONE static gather instead of an at[].set
-        # scatter chain (XLA scatter is the slow op on TPU — the same
-        # conversion that took the DVB-T receive 61 → 3000 Msps). Each FFT
+        # scatter chain. Each FFT
         # bin reads from concat([data, pilots, 0]): nulls read the trailing
         # zero slot, so the whole map is a take with a compile-time index.
         pb = np.asarray(pb, dtype=np.int64) if pb is not None and np.size(pb) \
@@ -88,8 +87,8 @@ def map_bits_grid(grid: CarrierGrid, bits, order: str):
     Equivalent to ``grid_map(grid, map_bits(bits, order).reshape(...))`` for
     the grid's own static pilot layout, but with no pair-deinterleave:
     ``map_bits``'s reshape to a minor axis of ``bits_per_symbol`` is a
-    lane-granularity relayout that measured ~4.5 µs per 1024-bin OFDM
-    symbol on v5e — 40× the fused form. Here the Gray amplitude is computed
+    layout change of the whole bit stream (its cost on the H100 is not
+    measured). Here the Gray amplitude is computed
     IN PLACE on the interleaved bit stream (Gray PAM amplitude =
     ±s·Σᵢ 2^(k−1−i)·Pᵢ with Pᵢ = 1−2·prefix-XOR of the axis bits — the
     prefix XORs are masked lane shifts), the per-point axis sums are k−1

@@ -5,7 +5,7 @@ Conventions preserved for output compatibility (docs/ofdm.md:22-60):
 unity forward FFT / 1/N inverse; natural bin order internally, signed indices
 at the API (bin = idx mod n_fft); DC implicitly null unless opted in.
 
-TPU design: a plan resolves once (at trace time, in numpy) to dense gather/
+Design: a plan resolves once (at trace time, in numpy) to dense gather/
 scatter index arrays; the per-symbol mapper objects of the reference collapse
 into whole-frame vectorized gathers (see ops.py).
 """

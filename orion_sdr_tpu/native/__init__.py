@@ -1,6 +1,6 @@
 """Native C++ batch decoders for the byte/bit-domain algebraic codes.
 
-The TPU compute path is JAX/XLA/Pallas; these are the HOST-side runtime
+The device compute path is JAX/XLA; these are the HOST-side runtime
 kernels (RS/BCH Berlekamp–Massey + Chien + Forney) that the reference keeps
 native — compiled on first import with the system g++ into a cached .so and
 bound via ctypes. Everything degrades gracefully to the numpy implementations

@@ -1,9 +1,2 @@
-"""Pallas TPU kernels for the hot irregular ops (SURVEY §7: "Hot kernels
-that XLA fuses poorly … become Pallas TPU kernels").
-
-Every kernel has a jnp reference implementation in its home module; these
-wrappers auto-fall back to interpret mode off-TPU so CPU CI still runs them.
-"""
-
-from .viterbi import viterbi_decode_soft_pallas, viterbi_chunks_pallas
-from .ldpc_bp import bp_decode_pallas
+"""Hand-written GPU kernels, each with a plain JAX reference in its home
+module and a dispatch rule that picks the reference off the GPU."""

@@ -1,642 +1,99 @@
-"""Pallas TPU Viterbi kernel: batched soft ACS + traceback for the punctured
-convolutional codes (ref behavior: fec/conv.rs:262-348; jnp reference:
-orion_sdr_tpu.fec.conv.viterbi_decode_soft).
+"""Hopper Viterbi kernel (``viterbi_cuda.cu``) behind a JAX FFI call.
 
-Design: path metrics live in VMEM for the whole trellis — one kernel
-invocation runs all T ACS steps AND the traceback, so the decision tensor
-never round-trips to HBM. Layout (v2): STATES ride the sublane axis (padded
-only to the 32-sublane int8 tile, not to 128 lanes) and the CODEWORD BATCH
-rides the lane axis — 128 codewords per kernel instance. v3 (round 3)
-attacks the VPU-throughput bound the v2 measurements exposed (lane-widening
-to 256 was neutral per lane-bit, so the chain is not MXU- or latency-bound):
-ALL four radix-2 candidates, their branch metrics, and the pad bias collapse
-into one stacked (4·S_pad, S_pad)+(4·S_pad, 8) MXU op per composite step
-(see _stacked_tables), each step's four LLR values ride one aligned (8, B)
-sublane slab of an interleaved plane, the two decision bits pack into one
-int8 plane, and the traceback's four one-hot matmuls become two through
-[p0ᵀ|p1ᵀ]. The ACS select is pure VPU and the traceback walks the trellis
-with one-hot state algebra (no per-lane dynamic gathers, which TPUs lack).
+One warp decodes one trellis lane: 64 path metrics, two per thread,
+exchanged by shuffles; decisions packed by ballots into shared memory;
+traceback in the same kernel. The arithmetic is the plain scan's
+(``fec.conv._trellis_scan``), so both give the same bits.
 
-VMEM budget: the packed int8 decision plane is (T/2, S_pad, 128) =
-T·S_pad·64 B (K=7: 4 KB/step), so ~1.9k-step trellises fit; the wrapper
-falls back to the jnp scan beyond the budget.
+The CUDA source is compiled with ``nvcc`` into ``ops/_build/`` (ignored by
+git) the first time a GPU trace needs it; the file name carries a hash of
+the source, so an edited kernel is rebuilt. The kernel has no CPU form: on
+other backends ``trellis_impl`` picks the scan.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..fec.conv import (_tables, depuncture_llrs, tail_bits,
-                        _viterbi_decode_soft_jnp as _viterbi_jnp)
+_HERE = os.path.dirname(__file__)
+_SRC = os.path.join(_HERE, "viterbi_cuda.cu")
+_BUILD = os.path.join(_HERE, "_build")
+_TARGET = "orion_viterbi"
 
-_B_LANES = 128   # codewords per kernel instance (lane axis)
-_NEG = -1.0e30
-_VMEM_BUDGET = 14 << 20   # decision plane + LLR/bit planes must fit VMEM
-                          # (span-1216 × 256-lane instance = 13.9 MB,
-                          # compile-verified on chip)
+# one warp's decision words (8 bytes per step) must fit one block's shared
+# memory (232448 bytes on Hopper)
+MAX_KERNEL_STEPS = 232448 // 8
+MAX_KERNEL_K = 7
 
-
-def _max_vmem_steps(s_pad: int, lanes: int = _B_LANES,
-                    radix: int = 2) -> int:
-    # per trellis step per lane: s_pad/radix B packed decisions (one int8
-    # per composite phase) + 8 B bf16 interleaved LLR plane + 4 B bits out
-    return _VMEM_BUDGET // (lanes * (s_pad // radix + 12))
+_registered = False
 
 
-def _pick_lanes(n_steps: int, s_pad: int, n_lanes: int,
-                radix: int = 2) -> int | None:
-    """Widest lane count whose whole trellis fits VMEM. 256 lanes measured
-    1.57× the per-lane-bit throughput of 128 (the sequential phases'
-    ~250 ns fixed cost amortizes over twice the work — the kernel is
-    phase-overhead-bound, not VPU/MXU-bound); only worth it when there are
-    more than 128 problems to fill the lanes."""
-    for lanes in (256, 128):
-        if lanes > 128 and n_lanes <= 128:
-            continue
-        if n_steps <= _max_vmem_steps(s_pad, lanes, radix):
-            return lanes
-    return None
+def trellis_impl(n_steps: int, K: int) -> str:
+    """Which implementation decodes a trellis of ``n_steps`` steps and
+    constraint length ``K``: ``"cuda"`` (this kernel) on a GPU when the
+    trellis fits its shared memory and register layout, else ``"scan"``."""
+    if (jax.default_backend() == "gpu" and 0 < n_steps <= MAX_KERNEL_STEPS
+            and K <= MAX_KERNEL_K):
+        return "cuda"
+    return "scan"
 
 
-@lru_cache(maxsize=None)
-def _kernel_tables(code: str):
-    """State-major tables for the RADIX-2 kernel (two trellis steps per
-    iteration — same MXU work as radix-1, half the sequential latency
-    chain). For composite branch (z1, z2) through intermediate state
-    ms = prev(ns, z2), ps = prev(ms, z1):
-
-      c_{z1z2}[ns] = (Q_{z1z2} @ pm)[ns] + a1·l0(t) + b1·l1(t)
-                     + a2·l0(t+1) + b2·l1(t+1)
-
-    with Q_{z1z2} = P_{z2}·P_{z1} and sign columns gathered through the
-    intermediate state. The two-level max (over z1 at fixed z2, then z2)
-    reproduces radix-1's per-step `c1 > c0` tie-breaks — exactly for
-    integer-ish LLRs (every sum exact in f32); on arbitrary float inputs
-    FP rounding of the shared step-t+1 term can flip a near-tie, and any
-    divergence is still a valid maximum-likelihood path (regression tests
-    pin bit-exactness on the shipped codes).
-
-    States pad to ``s_pad = max(S, 32)`` sublanes (int8 tile floor)."""
-    K, S, top, _, _, prev, sign0, sign1 = _tables(code)
-    s_pad = max(S, 32)
-    p0 = np.zeros((s_pad, s_pad), np.float32)
-    p1 = np.zeros((s_pad, s_pad), np.float32)
-    for ns in range(S):
-        p0[ns, prev[ns, 0]] = 1.0
-        p1[ns, prev[ns, 1]] = 1.0
-    pad_bias = np.where(np.arange(s_pad) < S, 0.0, _NEG
-                        ).astype(np.float32)[:, None]          # (S_pad, 1)
-
-    def col(v):
-        return np.concatenate(
-            [v, np.zeros(s_pad - S)]).astype(np.float32)[:, None]
-
-    P = [p0, p1]
-    q = {}
-    a1 = {}
-    b1 = {}
-    a2 = {}
-    b2 = {}
-    for z2 in range(2):
-        a2[z2] = col(sign0[:, z2])
-        b2[z2] = col(sign1[:, z2])
-        for z1 in range(2):
-            q[(z1, z2)] = (P[z2] @ P[z1]).astype(np.float32)
-            # sign of step t's branch at the intermediate state ms=prev(ns,z2)
-            a1[(z1, z2)] = col(sign0[prev[:, z2], z1])
-            b1[(z1, z2)] = col(sign1[prev[:, z2], z1])
-    msb = col((np.arange(S) >> top) & 1)
-    return K, S, s_pad, p0, p1, q, a1, b1, a2, b2, pad_bias, msb
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-@lru_cache(maxsize=None)
-def _stacked_tables(code: str):
-    """Stacked operators for the v3 kernel (one MXU op per composite ACS
-    step). The four radix-2 candidates' Q matrices stack on sublanes in
-    (z1, z2) order [(0,0),(1,0),(0,1),(1,1)] → ``qq_pm (4·S_pad, S_pad)``;
-    their branch-sign columns, the bias, and three zero pad columns stack
-    into ``qq_l (4·S_pad, 8)`` matching the per-step LLR plane rows
-    [l0(2t), l1(2t), l0(2t+1), l1(2t+1), 1, 0, 0, 0] — so the whole
-    candidate tensor is qq_pm@pm + qq_l@lx, replacing four matmuls plus
-    ~24 VPU broadcast ops (the kernel was VPU-throughput-bound: measured
-    lane-widening neutrality ruled out an MXU bound). ``pt (S_pad,
-    2·S_pad) = [p0ᵀ | p1ᵀ]`` halves the traceback matmuls the same way."""
-    K, S, s_pad, p0, p1, q, a1, b1, a2, b2, bias, msb = _kernel_tables(code)
-    order = [(0, 0), (1, 0), (0, 1), (1, 1)]
-    qq_pm = np.concatenate([q[zz] for zz in order], axis=0)
-    qq_l = np.concatenate([
-        np.concatenate([a1[(z1, z2)], b1[(z1, z2)], a2[z2], b2[z2], bias,
-                        np.zeros((s_pad, 3), np.float32)], axis=1)
-        for (z1, z2) in order], axis=0)
-    # traceback operator, SUBLANE-stacked (v3.1): one K=S_pad matmul yields
-    # both prev(·,0) and prev(·,1) one-hots plus the decoded bit (msb row);
-    # the z-select is then scalar arithmetic instead of a K=2·S_pad matmul
-    # over a concatenated operand
-    pt = np.concatenate(
-        [p0.T, p1.T, msb.T,
-         np.zeros((7, s_pad), np.float32)], axis=0).astype(np.float32)
-    return K, S, s_pad, qq_pm, qq_l, pt, bias, msb
+def build_library() -> str:
+    """Compile the kernel for sm_90a (once per source version); returns
+    the shared library's path."""
+    with open(_SRC, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    so = os.path.join(_BUILD, f"viterbi_{tag}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-I", jax.ffi.include_dir(), "-o", tmp, _SRC]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{r.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
 
 
-@lru_cache(maxsize=None)
-def _stacked_tables4(code: str):
-    """Radix-4 stacked operators (v5): FOUR trellis steps per composite
-    phase. The 16 path candidates' Q matrices stack on sublanes in
-    z1-fastest order (idx = z1 + 2·z2 + 4·z3 + 8·z4) → ``qq_pm
-    (16·S_pad, S_pad)``; their branch-sign columns (each gathered through
-    the right intermediate state) + bias stack into ``qq_l (16·S_pad,
-    16)`` matching per-phase LLR rows [l0(4g), l1(4g), …, l0(4g+3),
-    l1(4g+3), 1, 0×7]. Halves the number of sequential forward phases —
-    the fwd dependency chain was the remaining bound after the v4
-    traceback — at 2× the MXU work per trellis step (the MXU was ~idle)."""
-    K, S, top, _, _, prev, sign0, sign1 = _tables(code)
-    s_pad = max(S, 32)
-    P = [np.zeros((s_pad, s_pad), np.float32) for _ in range(2)]
-    for ns in range(S):
-        for z in range(2):
-            P[z][ns, prev[ns, z]] = 1.0
-    bias = np.where(np.arange(s_pad) < S, 0.0, _NEG
-                    ).astype(np.float32)[:, None]
-
-    def col(v):
-        return np.concatenate(
-            [v, np.zeros(s_pad - S)]).astype(np.float32)[:, None]
-
-    qq_pm = []
-    qq_l = []
-    idx_s = np.arange(S)
-    for z4 in range(2):
-        for z3 in range(2):
-            for z2 in range(2):
-                for z1 in range(2):
-                    ms3 = prev[idx_s, z4]
-                    ms2 = prev[ms3, z3]
-                    ms1 = prev[ms2, z2]
-                    qq_pm.append((P[z4] @ P[z3] @ P[z2] @ P[z1]
-                                  ).astype(np.float32))
-                    cols = [
-                        col(sign0[ms1, z1]), col(sign1[ms1, z1]),
-                        col(sign0[ms2, z2]), col(sign1[ms2, z2]),
-                        col(sign0[ms3, z3]), col(sign1[ms3, z3]),
-                        col(sign0[idx_s, z4]), col(sign1[idx_s, z4]),
-                        bias, np.zeros((s_pad, 7), np.float32)]
-                    qq_l.append(np.concatenate(cols, axis=1))
-    # stack order above is z1 fastest? loops: z4 outer … z1 inner →
-    # position p = z1 + 2·z2 + 4·z3 + 8·z4 ✓ (z1 varies fastest)
-    return K, S, s_pad, np.concatenate(qq_pm, 0), np.concatenate(qq_l, 0), \
-        bias
+def _register() -> None:
+    global _registered
+    if _registered:
+        return
+    lib = ctypes.cdll.LoadLibrary(build_library())
+    jax.ffi.register_ffi_target(_TARGET, jax.ffi.pycapsule(lib.OrionViterbi),
+                                platform="CUDA")
+    _registered = True
 
 
-_SKIP_TRACEBACK = False   # probe-only: time the forward pass alone
-_FORCE_RADIX4 = False     # measured 0.265 vs 0.237 ms (v4) — not a win
-
-
-def _make_kernel(zero_start: bool, lanes: int = _B_LANES,
-                 renorm_every: int = 1, lx_bf16: bool = False,
-                 n_states: int = 64):
-    """Radix-2 ACS + traceback kernel body (v3: stacked-operator form —
-    see _stacked_tables). ``zero_start``: pm pinned at state 0 and
-    traceback starts at state 0 (zero-tail termination). Otherwise initial
-    metrics come in per lane and the traceback starts from each lane's
-    argmax state (chunked fixed-lag decode, no termination at chunk
-    boundaries). T (trellis steps) must be even."""
-
-    def kernel(*refs):
-        if zero_start:
-            (lx_ref, qqpm_ref, qql_ref, bias_ref,
-             bits_ref, dec_ref, pm_ref) = refs
-        else:
-            (lx_ref, pm0_ref, qqpm_ref, qql_ref, bias_ref,
-             bits_ref, dec_ref, pm_ref) = refs
-        T2 = lx_ref.shape[0] // 8
-        bias = bias_ref[:]                          # (S_pad, 1)
-        s_pad = pm_ref.shape[0]
-        state = jax.lax.broadcasted_iota(jnp.int32, (s_pad, lanes), 0)
-
-        if zero_start:
-            pm_ref[:] = jnp.where(state == 0, 0.0, _NEG)
-        else:
-            pm_ref[:] = pm0_ref[:] + bias
-
-        qq_pm = qqpm_ref[:]                         # (4·S_pad, S_pad)
-        qq_l = qql_ref[:]                           # (4·S_pad, 8)
-
-        def step(t, pm, renorm):
-            lx = lx_ref[pl.ds(8 * t, 8)]            # (8, B) aligned read
-            if lx_bf16:
-                lx = lx.astype(jnp.float32)
-            # all four radix-2 candidates (incl. branch metrics + bias) in
-            # one stacked MXU op — the former per-candidate broadcast
-            # arithmetic was the VPU bottleneck
-            c_all = jnp.dot(qq_pm, pm, preferred_element_type=jnp.float32) \
-                + jnp.dot(qq_l, lx, preferred_element_type=jnp.float32)
-            c00 = c_all[:s_pad]
-            c10 = c_all[s_pad:2 * s_pad]
-            c01 = c_all[2 * s_pad:3 * s_pad]
-            c11 = c_all[3 * s_pad:]
-            # two-level max: z1 at fixed z2 first, then z2 — reproduces the
-            # radix-1 per-step (c1 > c0) tie-breaks (exactly for integer-ish
-            # LLRs; shared-term FP rounding can flip near-ties on arbitrary
-            # float inputs — any divergence is still a valid ML path).
-            # Selects are float arithmetic (Mosaic can't truncate i8→i1 for
-            # bool where).
-            d1_0 = (c10 > c00).astype(jnp.float32)
-            d1_1 = (c11 > c01).astype(jnp.float32)
-            m0 = jnp.maximum(c00, c10)
-            m1 = jnp.maximum(c01, c11)
-            dec2 = (m1 > m0).astype(jnp.float32)
-            z1_sel = d1_0 + dec2 * (d1_1 - d1_0)
-            # pack (z2, z1) into one int8 plane: halves the dominant VMEM
-            # term and the per-step decision stores
-            dec_ref[t] = (2.0 * dec2 + z1_sel).astype(jnp.int8)
-            new_pm = jnp.maximum(m0, m1)
-            if renorm:
-                # renormalize: unbounded metric drift breaks the MXU's f32
-                # exactness past a few hundred steps (measured). With
-                # integer-ish LLRs the subtraction is exact, so cadence > 1
-                # changes nothing on the bit-exactness domain.
-                new_pm = new_pm - jnp.max(new_pm, axis=0, keepdims=True)
-            return new_pm
-
-        if renorm_every > 1 and T2 % renorm_every == 0:
-            def fwd(g, _):
-                pm = pm_ref[:]
-                for u in range(renorm_every):       # static unroll
-                    pm = step(g * renorm_every + u, pm,
-                              renorm=(u == renorm_every - 1))
-                pm_ref[:] = pm
-                return 0
-
-            jax.lax.fori_loop(0, T2 // renorm_every, fwd, 0)
-        else:
-            def fwd(t, _):
-                pm_ref[:] = step(t, pm_ref[:], renorm=True)
-                return 0
-
-            jax.lax.fori_loop(0, T2, fwd, 0)
-
-        # ── traceback v4: bit-plane state walk ────────────────────────────
-        # prev(ns, z) = ((ns & (S/2−1)) << 1) | z (fec/conv.py:58-67) is a
-        # REGISTER RENAME on the state's bit planes — carry the state as
-        # n_bits (1, B) 0/1 planes and stepping back is just reassignment
-        # plus inserting z at the bottom. Reading the packed decision at
-        # the current state is a log2(S)-step halving SELECT over the
-        # decision slab (top bit picks the half, and so on) — ~6 dependent
-        # VPU selects instead of v3's two dependent (2S, S) MXU matmuls
-        # per composite phase, which were the traceback's latency chain.
-        # The decoded bit is the state's top plane, read off for free.
-        n_bits = max((n_states - 1).bit_length(), 2)    # log2(S)
-
-        if zero_start:
-            planes0 = tuple(jnp.zeros((1, lanes), jnp.float32)
-                            for _ in range(n_bits))
-        else:
-            # per-lane argmax start (lowest index on ties = jnp.argmax)
-            pm = pm_ref[:]
-            m = jnp.max(pm, axis=0, keepdims=True)
-            idx_val = jnp.where(pm == m, state.astype(jnp.float32),
-                                jnp.float32(1e9))
-            s0 = jnp.min(idx_val, axis=0, keepdims=True)    # (1, B) index
-            planes = []
-            for i in range(n_bits - 1, -1, -1):             # msb..lsb
-                hi = jnp.floor(s0 / float(1 << i))
-                planes.append(hi)
-                s0 = s0 - hi * float(1 << i)
-            planes0 = tuple(planes[::-1])                   # lsb-first
-
-        # constant (8, 1) iota-bit masks for the final 3-bit one-hot
-        sub8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-        masks8 = [((sub8 >> k) & 1).astype(jnp.float32) for k in range(3)]
-
-        def bwd(i, st):
-            t = T2 - 1 - i
-            d = dec_ref[t].astype(jnp.float32)      # (S_pad, B) 2·z2 + z1
-            if n_states < s_pad:                    # pad rows never reached
-                d = d[:n_states]
-            # halving fold down to 8 sublanes (arithmetic select — Mosaic
-            # has no sublane-broadcast `where`, but (1, B) broadcasts fine
-            # in + and ×, cf. the renorm line above)
-            for k in range(n_bits - 1, 2, -1):
-                half = d.shape[0] // 2
-                d = d[:half] + st[k] * (d[half:] - d[:half])
-            # contract the last 3 bits against a constant-iota one-hot
-            oh8 = jnp.ones((8, lanes), jnp.float32)
-            for k in range(3):
-                mk = masks8[k]                      # (8, 1) constant
-                oh8 = oh8 * (mk * st[k] + (1.0 - mk) * (1.0 - st[k]))
-            d = jnp.sum(oh8 * d, axis=0, keepdims=True)     # (1, B)
-            z2 = jnp.floor(d * 0.5)
-            z1 = d - 2.0 * z2
-            bits_ref[pl.ds(2 * t + 1, 1), :] = st[n_bits - 1]
-            bits_ref[pl.ds(2 * t, 1), :] = st[n_bits - 2]
-            # two renames: ns → ms = prev(ns, z2) → prev(ms, z1)
-            return (z1, z2) + st[:n_bits - 2]
-
-        if not _SKIP_TRACEBACK:
-            jax.lax.fori_loop(0, T2, bwd, planes0)
-
-    return kernel
-
-
-def _make_kernel4(zero_start: bool, lanes: int, n_states: int):
-    """Radix-4 ACS (v5) + bit-plane traceback. Four trellis steps per
-    sequential phase: one stacked (16·S, S)+(16·S, 16) MXU op yields all
-    16 path candidates, a 4-level max tree (z1 innermost — the same
-    nesting and lower-z tie preference as the sequential per-step rule)
-    selects the survivor and packs its 4 decision bits into one int8.
-    T must be divisible by 4 and log2(S) ≥ 4."""
-
-    def kernel(*refs):
-        if zero_start:
-            (lx_ref, qqpm_ref, qql_ref, bias_ref,
-             bits_ref, dec_ref, pm_ref) = refs
-        else:
-            (lx_ref, pm0_ref, qqpm_ref, qql_ref, bias_ref,
-             bits_ref, dec_ref, pm_ref) = refs
-        T4 = lx_ref.shape[0] // 16
-        bias = bias_ref[:]
-        s_pad = pm_ref.shape[0]
-        state = jax.lax.broadcasted_iota(jnp.int32, (s_pad, lanes), 0)
-        if zero_start:
-            pm_ref[:] = jnp.where(state == 0, 0.0, _NEG)
-        else:
-            pm_ref[:] = pm0_ref[:] + bias
-        qq_pm = qqpm_ref[:]                     # (16·S_pad, S_pad)
-        qq_l = qql_ref[:]                       # (16·S_pad, 16)
-
-        def fwd(g, _):
-            pm = pm_ref[:]
-            lx = lx_ref[pl.ds(16 * g, 16)].astype(jnp.float32)
-            c_all = jnp.dot(qq_pm, pm, preferred_element_type=jnp.float32) \
-                + jnp.dot(qq_l, lx, preferred_element_type=jnp.float32)
-            c = [c_all[i * s_pad:(i + 1) * s_pad] for i in range(16)]
-            # level 1: z1
-            d1 = [(c[2 * j + 1] > c[2 * j]).astype(jnp.float32)
-                  for j in range(8)]
-            m1 = [jnp.maximum(c[2 * j], c[2 * j + 1]) for j in range(8)]
-            # level 2: z2 (carry the winning z1)
-            d2 = [(m1[2 * j + 1] > m1[2 * j]).astype(jnp.float32)
-                  for j in range(4)]
-            z1c = [d1[2 * j] + d2[j] * (d1[2 * j + 1] - d1[2 * j])
-                   for j in range(4)]
-            m2 = [jnp.maximum(m1[2 * j], m1[2 * j + 1]) for j in range(4)]
-            # level 3: z3 (carry z1, z2)
-            d3 = [(m2[2 * j + 1] > m2[2 * j]).astype(jnp.float32)
-                  for j in range(2)]
-            z1c = [z1c[2 * j] + d3[j] * (z1c[2 * j + 1] - z1c[2 * j])
-                   for j in range(2)]
-            z2c = [d2[2 * j] + d3[j] * (d2[2 * j + 1] - d2[2 * j])
-                   for j in range(2)]
-            m3 = [jnp.maximum(m2[2 * j], m2[2 * j + 1]) for j in range(2)]
-            # level 4: z4
-            d4 = (m3[1] > m3[0]).astype(jnp.float32)
-            z1f = z1c[0] + d4 * (z1c[1] - z1c[0])
-            z2f = z2c[0] + d4 * (z2c[1] - z2c[0])
-            z3f = d3[0] + d4 * (d3[1] - d3[0])
-            dec_ref[g] = (z1f + 2.0 * z2f + 4.0 * z3f + 8.0 * d4
-                          ).astype(jnp.int8)
-            new_pm = jnp.maximum(m3[0], m3[1])
-            pm_ref[:] = new_pm - jnp.max(new_pm, axis=0, keepdims=True)
-            return 0
-
-        jax.lax.fori_loop(0, T4, fwd, 0)
-
-        n_bits = max((n_states - 1).bit_length(), 4)
-        if zero_start:
-            planes0 = tuple(jnp.zeros((1, lanes), jnp.float32)
-                            for _ in range(n_bits))
-        else:
-            pm = pm_ref[:]
-            m = jnp.max(pm, axis=0, keepdims=True)
-            idx_val = jnp.where(pm == m, state.astype(jnp.float32),
-                                jnp.float32(1e9))
-            s0 = jnp.min(idx_val, axis=0, keepdims=True)
-            planes = []
-            for i in range(n_bits - 1, -1, -1):
-                hi = jnp.floor(s0 / float(1 << i))
-                planes.append(hi)
-                s0 = s0 - hi * float(1 << i)
-            planes0 = tuple(planes[::-1])
-
-        sub8 = jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0)
-        masks8 = [((sub8 >> k) & 1).astype(jnp.float32) for k in range(3)]
-
-        def bwd(i, st):
-            g = T4 - 1 - i
-            d = dec_ref[g].astype(jnp.float32)
-            if n_states < s_pad:
-                d = d[:n_states]
-            for k in range(n_bits - 1, 2, -1):
-                half = d.shape[0] // 2
-                d = d[:half] + st[k] * (d[half:] - d[:half])
-            oh8 = jnp.ones((8, lanes), jnp.float32)
-            for k in range(3):
-                mk = masks8[k]
-                oh8 = oh8 * (mk * st[k] + (1.0 - mk) * (1.0 - st[k]))
-            d = jnp.sum(oh8 * d, axis=0, keepdims=True)      # 0..15
-            z4 = jnp.floor(d * 0.125)
-            d = d - 8.0 * z4
-            z3 = jnp.floor(d * 0.25)
-            d = d - 4.0 * z3
-            z2 = jnp.floor(d * 0.5)
-            z1 = d - 2.0 * z2
-            bits_ref[pl.ds(4 * g + 3, 1), :] = st[n_bits - 1]
-            bits_ref[pl.ds(4 * g + 2, 1), :] = st[n_bits - 2]
-            bits_ref[pl.ds(4 * g + 1, 1), :] = st[n_bits - 3]
-            bits_ref[pl.ds(4 * g, 1), :] = st[n_bits - 4]
-            return (z1, z2, z3, z4) + st[:n_bits - 4]
-
-        if not _SKIP_TRACEBACK:
-            jax.lax.fori_loop(0, T4, bwd, planes0)
-
-    return kernel
-
-
-@lru_cache(maxsize=None)
-def _kernel_for(zero_start: bool, lanes: int, renorm_every: int,
-                lx_bf16: bool, skip_tb: bool, n_states: int,
-                radix: int = 2):
-    # skip_tb participates in the cache key so probe variants don't collide
-    if radix == 4:
-        return _make_kernel4(zero_start, lanes, n_states)
-    return _make_kernel(zero_start, lanes, renorm_every, lx_bf16, n_states)
-
-
-def _run_kernel(l0, l1, pm0, code: str, interpret: bool,
-                lanes: int = _B_LANES, renorm_every: int = 1,
-                lx_bf16: bool = False, radix: int = 2):
-    """Shared pallas_call driver. ``l0``/``l1``: (L, T) LLR planes for L
-    codeword/chunk lanes (T even); ``pm0``: (L, S) initial metrics or None
-    for the zero-start (terminated) trellis. Returns (L, T) bit planes.
-    ``radix=4`` dispatches the v5 kernel (T divisible by 4, S ≥ 16)."""
-    if radix == 4:
-        _, S, s_pad, qq_pm, qq_l, bias = _stacked_tables4(code)
-    else:
-        _, S, s_pad, qq_pm, qq_l, pt, bias, msb = _stacked_tables(code)
+def trellis_cuda(l0, l1, pm0, K: int, g0: int, g1: int, terminated: bool):
+    """(L, T) LLR planes and (L, 2^(K-1)) initial metrics → (L, T) uint8
+    decoded bits, on the GPU. Same contract as ``fec.conv._trellis_scan``."""
+    _register()
     l0 = jnp.asarray(l0, jnp.float32)
-    l1 = jnp.asarray(l1, jnp.float32)
     L, T = l0.shape
-    assert T % (2 * (radix // 2)) == 0 and T % radix == 0, \
-        "trellis length must divide the kernel radix"
-    l_pad = -(-L // lanes) * lanes
-    if l_pad != L:
-        pad = jnp.zeros((l_pad - L, T), jnp.float32)
-        l0 = jnp.concatenate([l0, pad])
-        l1 = jnp.concatenate([l1, pad])
-    # interleaved per-phase LLR plane (see _stacked_tables): radix-2 phase
-    # t reads rows [8t, 8t+8) = [l0(2t), l1(2t), l0(2t+1), l1(2t+1), 1,
-    # 0·3]; radix-4 phase g reads 16 rows [l0(4g)…l1(4g+3), 1, 0·7] — one
-    # aligned read instead of 2·radix dynamic row reads
-    l0t = l0.T
-    l1t = l1.T
-    if radix == 4:
-        T4 = T // 4
-        ones = jnp.ones((T4, 1, l_pad), jnp.float32)
-        zeros = jnp.zeros((T4, 7, l_pad), jnp.float32)
-        lx = jnp.concatenate(
-            [l0t[0::4][:, None], l1t[0::4][:, None],
-             l0t[1::4][:, None], l1t[1::4][:, None],
-             l0t[2::4][:, None], l1t[2::4][:, None],
-             l0t[3::4][:, None], l1t[3::4][:, None], ones, zeros],
-            axis=1).reshape(T4 * 16, l_pad)
-        lx_rows = T4 * 16
-    else:
-        T2 = T // 2
-        ones = jnp.ones((T2, 1, l_pad), jnp.float32)
-        zeros = jnp.zeros((T2, 3, l_pad), jnp.float32)
-        lx = jnp.concatenate([
-            l0t[0::2][:, None], l1t[0::2][:, None],
-            l0t[1::2][:, None], l1t[1::2][:, None], ones, zeros,
-            ], axis=1).reshape(T2 * 8, l_pad)
-        lx_rows = T2 * 8
-    if lx_bf16:
-        # halves the LLR plane's VMEM (integer-ish LLRs stay exact; demap
-        # LLRs round ~0.4%, inside Viterbi's quantization tolerance)
-        lx = lx.astype(jnp.bfloat16)
-    args = [lx]
-    in_specs = [
-        pl.BlockSpec((lx_rows, lanes), lambda i: (0, i),
-                     memory_space=pltpu.VMEM),
-    ]
-    if pm0 is not None:
-        pm0 = jnp.asarray(pm0, jnp.float32)
-        pm0 = jnp.pad(pm0, ((0, l_pad - L), (0, s_pad - pm0.shape[1])))
-        args.append(pm0.T)                           # (S_pad, L_pad)
-        in_specs.append(pl.BlockSpec((s_pad, lanes), lambda i: (0, i),
-                                     memory_space=pltpu.VMEM))
-    tables = [qq_pm, qq_l, bias]
-    args += [jnp.asarray(t) for t in tables]
-    in_specs += [pl.BlockSpec(memory_space=pltpu.VMEM)] * len(tables)
-
-    bits = pl.pallas_call(
-        _kernel_for(pm0 is None, lanes, renorm_every, lx_bf16,
-                    _SKIP_TRACEBACK, S, radix),
-        grid=(l_pad // lanes,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((T, lanes), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, l_pad), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((T // radix, s_pad, lanes), jnp.int8),  # packed z's
-            pltpu.VMEM((s_pad, lanes), jnp.float32),   # pm
-        ],
-        interpret=interpret,
-    )(*args)
-    return bits.T[:L]
-
-
-def _chunks_jnp(c0, c1, pm0, code: str):
-    """jnp reference for the chunked decode (argmax-start traceback) —
-    the odd-span fallback; mirrors fec.conv.viterbi_decode_soft_chunked's
-    per-chunk math exactly."""
-    _, S, top, _, _, prev, sign0, sign1 = _tables(code)
-    prev_j = jnp.asarray(prev)
-    s0 = jnp.asarray(sign0)
-    s1 = jnp.asarray(sign1)
-    c0 = jnp.asarray(c0, jnp.float32)
-    c1 = jnp.asarray(c1, jnp.float32)
-    pm = jnp.asarray(pm0, jnp.float32)
-
-    def acs(pm, ls):
-        la, lb = ls
-        cand = pm[..., prev_j] + s0 * la[..., None, None] \
-            + s1 * lb[..., None, None]
-        dec = jnp.argmax(cand, axis=-1)
-        new_pm = jnp.max(cand, axis=-1)
-        new_pm = new_pm - jnp.max(new_pm, axis=-1, keepdims=True)
-        return new_pm, dec.astype(jnp.uint8)
-
-    pm, decs = jax.lax.scan(acs, pm,
-                            (jnp.moveaxis(c0, -1, 0),
-                             jnp.moveaxis(c1, -1, 0)))
-
-    def traceback(state, dec_t):
-        bit = (state >> top) & 1
-        z = jnp.take_along_axis(dec_t, state[..., None],
-                                axis=-1)[..., 0].astype(jnp.int32)
-        return prev_j[state, z], bit
-
-    state0 = jnp.argmax(pm, axis=-1).astype(jnp.int32)
-    _, bits_rev = jax.lax.scan(traceback, state0, decs[::-1])
-    return jnp.moveaxis(bits_rev[::-1], 0, -1).astype(jnp.float32)
-
-
-def viterbi_chunks_pallas(c0, c1, pm0, code: str, interpret=None):
-    """Run the chunked ACS+traceback over pre-chunked LLR lanes.
-
-    ``c0``/``c1``: (L, span) per-step LLR pairs for L = batch·n_chunks lanes;
-    ``pm0``: (L, S) initial metrics per lane (unpadded state count). Returns
-    (L, span) decoded bit planes (margins included — caller drops them).
-    Odd spans take the jnp fallback (the radix-2 kernel needs even T)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if np.shape(c0)[-1] % 2:
-        return _chunks_jnp(c0, c1, pm0, code)
-    S, s_pad = _kernel_tables(code)[1:3]
-    span = np.shape(c0)[-1]
-    # radix-4 (v5) measured SLOWER on chip than radix-2+v4 traceback
-    # (0.265 vs 0.237 ms at the DVB-T operating point): halving the fwd
-    # phases does not pay for the 4-level select tree's extra VPU work
-    # per phase. Kept opt-in for the record.
-    radix = 4 if (_FORCE_RADIX4 and span % 4 == 0 and S >= 16) else 2
-    lanes = _pick_lanes(span, s_pad, np.shape(c0)[0], radix)
-    if lanes is None:
-        return _chunks_jnp(c0, c1, pm0, code)
-    return _run_kernel(c0, c1, pm0, code, interpret, lanes=lanes,
-                       lx_bf16=True, radix=radix)
-
-
-def viterbi_decode_soft_pallas(coded_llrs, info_bits: int, rate: str = "1/2",
-                               code: str = "k5", interpret=None):
-    """Drop-in for fec.conv.viterbi_decode_soft on (B, n_coded) batches.
-
-    ``interpret=None`` auto-selects: compiled on TPU, interpreter elsewhere.
-    Falls back to the jnp scan when the trellis exceeds the VMEM budget.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    l = jnp.asarray(coded_llrs, jnp.float32)
-    squeeze = l.ndim == 1
-    if squeeze:
-        l = l[None, :]
-    assert l.ndim == 2, "pallas path takes (B, n_coded)"
-    n_steps = info_bits + tail_bits(code)
-    S, s_pad = _kernel_tables(code)[1:3]
-    radix = 4 if (_FORCE_RADIX4 and n_steps % 4 == 0 and S >= 16) else 2
-    lanes = _pick_lanes(n_steps, s_pad, l.shape[0], radix)
-    if lanes is None or n_steps % 2:
-        # over the VMEM budget, or odd trellis (radix-2 kernel needs even)
-        out = _viterbi_jnp(l, info_bits, rate, code)
-        return out[0] if squeeze else out
-
-    full = depuncture_llrs(l, info_bits, rate, code)
-    bits = _run_kernel(full[..., 0::2], full[..., 1::2], None, code,
-                       interpret, lanes=lanes, lx_bf16=True, radix=radix)
-    out = bits[:, :info_bits].astype(jnp.uint8)
-    return out[0] if squeeze else out
+    if L == 0:
+        return jnp.zeros((0, T), jnp.uint8)
+    call = jax.ffi.ffi_call(_TARGET, jax.ShapeDtypeStruct((L, T), jnp.uint8))
+    return call(l0, jnp.asarray(l1, jnp.float32),
+                jnp.asarray(pm0, jnp.float32),
+                K=np.int32(K), g0=np.int32(g0), g1=np.int32(g1),
+                terminated=np.int32(bool(terminated)))

@@ -14,8 +14,8 @@ transform (ISFFT), and transmits the TF grid as N ordinary CP-OFDM symbols
 channel each symbol sees the frame-average SNR instead of its worst
 fade — full time-frequency diversity, at OFDM's cost.
 
-TPU design: the ISFFT/SFFT are one batched 2-D FFT pair over the
-(..., N, M) grid (MXU/VPU-friendly, no per-symbol loop), and the TF frame
+Design: the ISFFT/SFFT are one batched 2-D FFT pair over the
+(..., N, M) grid (no per-symbol loop), and the TF frame
 reuses the whole-frame ``grid_map``/``ofdm_assemble``/``symbol_fft``
 machinery — OTFS here is a ~60-line pre/post-transform, not a new stack.
 

@@ -1,7 +1,7 @@
 """Costas-array sync scoring for FT8/FT4 (behavioral spec: sync/costas.rs).
 
 The reference scores each (time, freq) candidate with a nested loop over
-Costas cells. TPU design: the per-cell difference metric
+Costas cells. Design: the per-cell difference metric
     C[s, b] = max(0, wf[s,b] − max(neighbors in freq and time))
 is computed ONCE for the whole waterfall (4 shifted maxes), and the score
 grid over ALL candidate (t, f) pairs is a sum of shifted views of C — a

@@ -1,7 +1,7 @@
 """DVB-T guard-interval acquisition + integer CFO (behavioral spec:
 sync/dvb_t_gi_sync.rs — van de Beek ML over the cyclic prefix).
 
-TPU design: the reference recomputes a (search_len × cp_len × max_syms)
+Design: the reference recomputes a (search_len × cp_len × max_syms)
 correlation per offset; here the lag-n_fft product and energy are computed
 once for the whole buffer and every offset's γ/Φ is a cumulative-sum sliding
 window (O(len)), with the multi-symbol coherent accumulation a few shifted
@@ -62,8 +62,8 @@ def _gi_metrics(iq, n_fft: int, cp_len: int, search_len: int,
 
     Returns (argmax of the accumulated ML metric, per-offset single-symbol
     score at argmax and at its period origin, γ at both) — everything the
-    host-side unwrap rule needs (the relay charges ~100 ms per fetch, so
-    shipping the full γ/Φ vectors home dominates the whole receiver).
+    host-side unwrap rule needs, so the full γ/Φ vectors stay on the
+    device.
     """
     g1, p1 = _gamma_phi(iq, n_fft, cp_len)
     n_valid = g1.shape[-1]

@@ -6,11 +6,11 @@ pattern reproduce the reference's fixed-seed xorshift64 generators exactly
 (seeds 0x4F46444D50524531 / 0x4F46444D54524E31, ofdm_sync.rs:121-180), so a
 frame transmitted by either implementation acquires on the other.
 
-TPU design: the reference recomputes P(d)/R(d) per offset — O(len·repeat_len).
+Design: the reference recomputes P(d)/R(d) per offset — O(len·repeat_len).
 Because the per-segment sums are contiguous, P and R are sliding-window sums
 of c[t] = conj(r[t])·r[t+L] and |r[t+L]|² over (R−1)·L samples — computed
 with two cumulative sums, O(len), fully vectorized. The integer-CFO circular
-shift search is one dense matmul against rolled known patterns (MXU work).
+shift search is one dense matmul against rolled known patterns.
 """
 
 from __future__ import annotations

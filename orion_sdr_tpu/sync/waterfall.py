@@ -1,11 +1,11 @@
 """Symbol-rate magnitude spectrogram ("waterfall") for FT8/FT4/PSK31 sync
 (behavioral spec: sync/waterfall.rs).
 
-TPU design: the reference runs a Goertzel correlator per (symbol, tone) —
+Design: the reference runs a Goertzel correlator per (symbol, tone) —
 O(syms·tones·sps) scalar work. Here the whole grid is ONE matmul: the capture
 is reshaped to (num_syms, sps) and multiplied against the (sps, num_tones)
 tone-phasor matrix W[i, k] = exp(−j2π·f_k·i/fs), putting the entire search on
-the MXU. Log-power output matches the reference: ln(|acc|² + 1e−12), with
+one matmul. Log-power output matches the reference: ln(|acc|² + 1e−12), with
 out-of-buffer symbols left at 0.0 (safe for max-log scoring).
 """
 

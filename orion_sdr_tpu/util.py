@@ -2,7 +2,7 @@
 
 Semantics mirror /root/reference/src/util.rs (Hann single-bin SNR, clamped
 power spectrum, narrowband/wideband spectrum SNR, AM occupied bandwidth), so
-the TPU build's roundtrip tests gate on the same numbers the reference's do.
+this package's roundtrip tests gate on the same numbers the reference's do.
 All functions accept numpy or JAX arrays and return Python floats / numpy —
 they are measurement code, not hot-path kernels.
 """

@@ -1,7 +1,7 @@
 """DVB-T 2K / NB-DVB-T waveform definitions (behavioral spec:
 waveform/dvb_t.rs; parameters from ETSI EN 300 744).
 
-TPU design: the reference's symbol-at-a-time ScatteredPilotMapper/Extractor
+Design: the reference's symbol-at-a-time ScatteredPilotMapper/Extractor
 objects become four precomputed per-phase index/value arrays; whole frames
 map/extract as ONE batched scatter/gather over (n_symbols, 2048) with the
 phase selected by `l mod 4` — no orchestrator state, no per-symbol loop.
@@ -124,8 +124,7 @@ def dvb_t_map_symbols(bits, v: int, alpha: int = 1):
     hierarchical non-uniform grid, beyond the reference).
 
     The axis tables factor as sign(MSB) × (M−1 − 2·gray_decode(rest) + α−1),
-    so the mapping is pure bit arithmetic — a per-cell table gather is
-    VPU-serial on TPU (measured ~90× slower in the QAM mapper)."""
+    so the mapping is pure bit arithmetic, not a per-cell table gather."""
     b = jnp.asarray(bits).astype(jnp.int32) & 1
     g = b.reshape(b.shape[:-1] + (-1, v))
     k = v // 2

@@ -7,7 +7,7 @@ constellation, hierarchy, code rates, guard, mode, cell id, protected by a
 shortened BCH(67,53) t=2 over GF(2^7) (prim poly x^7+x^3+1, generator
 0x4377).
 
-TPU design: whole-frame TPS cells are a cumulative-product along the symbol
+Design: whole-frame TPS cells are a cumulative-product along the symbol
 axis (one vectorized pass); decode is a (68,17) correlation against the
 previous symbol row. The BCH runs once per frame — host numpy.
 """

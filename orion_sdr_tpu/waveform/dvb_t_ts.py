@@ -5,7 +5,7 @@ spec: waveform/dvb_t_ts.rs; ETSI EN 300 744 §4.3.1).
 8 packets, the group-leading sync byte inverts 0x47→0xB8 (XOR 0xFF) and is
 NOT clocked over, the other seven sync bytes are clocked but not randomized.
 
-TPU design: the whole dispersal is one precomputed per-group PN byte plane
+Design: the whole dispersal is one precomputed per-group PN byte plane
 XORed over the packet matrix — no per-byte loop.
 """
 

@@ -428,3 +428,40 @@ def test_dvb_t_band_receive_two_muxes():
         assert frames_ok, (c, got.get(c))
         assert np.array_equal(frames_ok[0].payload, p), c
         assert frames_ok[0].tps.cell_id == 5
+
+
+@pytest.mark.parametrize("entry", ["frame", "blind", "hierarchical"])
+def test_kernel_fault_is_not_a_dropped_frame(entry, monkeypatch):
+    """A Viterbi kernel that fails to build raises out of every DVB-T frame
+    decoder; it is not reported as a corrupt frame."""
+    import jax
+    from orion_sdr_tpu.ops import viterbi as ov
+    from orion_sdr_tpu.demodulate.dvb_t_frame import (DvbTHierFrameDemod,
+                                                      dvb_t_blind_decode)
+    from orion_sdr_tpu.waveform.dvb_t import (DvbTHierLinkParams,
+                                              DvbTHierFrameParams)
+    from orion_sdr_tpu.modulate.dvb_t_frame import DvbTHierFrameMod
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed: simulated")
+
+    if entry == "hierarchical":
+        params = DvbTHierFrameParams(link=DvbTHierLinkParams(
+            guard="1/8", constellation="qam16", alpha=2, code_rate_hp="1/2",
+            code_rate_lp="3/4"))
+        frame = DvbTHierFrameMod(params).modulate(_payload(400, 1),
+                                                  _payload(1200, 2))
+        run = lambda: DvbTHierFrameDemod(params).decode(
+            frame.iq, frame.n_symbols, 400, 1200)
+    else:
+        params = DvbTFrameParams(LINK, 0, 9)
+        frame = DvbTFrameMod(params).modulate(_payload(500, 3))
+        run = (lambda: DvbTFrameDemod(params).decode(
+            frame.iq, frame.n_symbols, 500)) if entry == "frame" else \
+            (lambda: dvb_t_blind_decode(frame.iq))
+    jax.clear_caches()      # no decoder traced with the scan is reused
+    monkeypatch.setattr(ov, "trellis_impl", lambda n_steps, K: "cuda")
+    monkeypatch.setattr(ov, "_registered", False)
+    monkeypatch.setattr(ov, "build_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        run()

@@ -354,7 +354,7 @@ def test_device_rs_matches_host(n, p):
 
 @pytest.mark.parametrize("t,n", [(8, 184), (8, 255), (5, 167), (2, 63)])
 def test_device_bch_encode_matches_host(t, n):
-    """Device MXU-matmul encode (fec/bch_device.py::bch_encode_batch_device)
+    """Device matmul encode (fec/bch_device.py::bch_encode_batch_device)
     is bit-exact vs the numpy LFSR reference and survives a decode roundtrip."""
     from orion_sdr_tpu.fec.bch_device import bch_encode_batch_device
     bch = Bch(t, n)
@@ -396,16 +396,22 @@ def test_outer_encode_device_path_matches_host(monkeypatch):
     payload = rng.integers(0, 256, 2200).astype(np.uint8)  # >64 blocks both
     for outer in (chain.OuterFec.bch(8), chain.OuterFec.reed_solomon(60, 8)):
         host = chain.outer_encode(outer, payload)
-        monkeypatch.setattr(chain, "_outer_device_ok", lambda t, nb: True)
+        monkeypatch.setattr(chain, "outer_on_device", lambda t, nb: True)
         dev = chain.outer_encode(outer, payload)
         monkeypatch.undo()
         assert np.array_equal(host, dev), outer.kind
 
 
 def test_outer_device_gate_logic(monkeypatch):
-    """The TPU-only device-outer dispatch never fires on CPU and honors the
-    escape hatch."""
-    from orion_sdr_tpu.frame.chain import _outer_device_ok
-    assert not _outer_device_ok(8, 1000)       # CPU backend in tests
-    monkeypatch.setenv("ORION_SDR_TPU_DEVICE_OUTER", "0")
-    assert not _outer_device_ok(8, 1000)
+    """The device outer decoders run only on a GPU, only for batches of at
+    least the measured crossover, and only for t the device code supports."""
+    import jax
+    from orion_sdr_tpu.fec.bch_device import MAX_DEVICE_T
+    from orion_sdr_tpu.frame.chain import (outer_on_device,
+                                           _DEVICE_OUTER_MIN_BLOCKS as n_min)
+    assert not outer_on_device(8, 1000)        # CPU backend in tests
+    assert not outer_on_device(8, 10 ** 6)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert outer_on_device(8, n_min)
+    assert not outer_on_device(8, n_min - 1)
+    assert not outer_on_device(MAX_DEVICE_T + 1, n_min)

@@ -115,7 +115,7 @@ def test_rds_end_to_end_through_fm_chain():
     n = 1 << 19
     left, right = _lr(n)
     groups = R.rds_groups_0a(0x52A1, pty=9, tp=True, ps_name="ORIONFM ") \
-        + R.rds_groups_2a(0x52A1, pty=9, radiotext="TPU NATIVE SDR")
+        + R.rds_groups_2a(0x52A1, pty=9, radiotext="JAX NATIVE SDR")
     bits = R.rds_encode_groups(groups)
     iq = np.asarray(fm_stereo_mod(left, right, FS, rds_bits=bits)[0])
     rng = np.random.default_rng(5)
@@ -124,7 +124,7 @@ def test_rds_end_to_end_through_fm_chain():
     out = fm_stereo_demod(z, FS, decode_rds=True)
     assert out.rds.pi == 0x52A1
     assert out.rds.ps_name == "ORIONFM "
-    assert out.rds.radiotext == "TPU NATIVE SDR"
+    assert out.rds.radiotext == "JAX NATIVE SDR"
 
 
 def test_stereo_batched_matches_single():

@@ -251,7 +251,7 @@ def test_ft8_decode_windows_batched():
     """BASELINE config 3: many 15 s windows, one batched LDPC pass."""
     from orion_sdr_tpu.codec.ft8_stream import ft8_decode_windows
     ht = CallsignHashTable()
-    calls = ("KA1ABC", "W9XYZ", "K5TPU")
+    calls = ("KA1ABC", "W9XYZ", "K5GPU")
     rng = np.random.default_rng(31)
     wins = []
     for i, c in enumerate(calls):

@@ -1,6 +1,6 @@
 """GPS LNAV message layer: parity, subframe codec, ephemeris, PVT.
 
-Completes the GNSS family's codec → capture decode arc (VERDICT r3 item 8).
+Completes the GNSS family's codec → capture decode arc.
 """
 import os
 
@@ -195,7 +195,7 @@ def test_capture_to_ephemeris_single_subframe_bits():
     assert frame.ephemeris.sqrt_a == pytest.approx(EPH.sqrt_a, abs=2**-19)
 
 
-# ── subframe 4/5 wire format: almanac, iono/UTC, Klobuchar (ADVICE r4) ──────
+# ── subframe 4/5 wire format: almanac, iono/UTC, Klobuchar ──────────────────
 
 ALM = sdr.GpsAlmanac(
     prn=7, e=0.0091, t_oa=319488.0, delta_i=0.0123, omega_dot=-2.51e-9,
@@ -255,7 +255,7 @@ def test_almanac_iono_utc_page_roundtrip():
 
 def test_navframe_default_almanacs_not_shared():
     """GpsNavFrame() without almanacs must not expose one shared mutable
-    dict across instances (ADVICE r4)."""
+    dict across instances."""
     f1 = sdr.GpsNavFrame([], None)
     f2 = sdr.GpsNavFrame([], None)
     assert f1.almanacs is None and f2.almanacs is None

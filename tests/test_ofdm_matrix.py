@@ -1,10 +1,10 @@
 """OFDM unit-depth permutation matrix + BER-threshold SNR regressions.
 
-Round-3 VERDICT item 8: mirrors the reference's two thinnest-covered
+Mirrors the reference's two thinnest-covered
 matrices — `tests/unit/ofdm.rs` (27 cases: mod geometry, equalizer
 permutations, gain/scale conventions, spectral levers) and
 `tests/roundtrip/ofdm_snr.rs:30-92` (`mean_ber_at_noise_scale` fixed
-pass/fail CI gates, 50-trial Monte Carlo). TPU shape: the 50 AWGN trials
+pass/fail CI gates, 50-trial Monte Carlo). Batched: the 50 AWGN trials
 run as ONE batched demod instead of the reference's per-trial loop.
 """
 

@@ -147,7 +147,7 @@ def test_qpsk31_noiseless_text():
 
 
 def test_bpsk31_text_roundtrip_rf():
-    msg = "CQ CQ de TPU1"
+    msg = "CQ CQ de GPU1"
     iq = bpsk31_mod_text(msg, FS, rf_hz=1000.0)
     st = Psk31Stream.new_bpsk(FS, carrier_hz=1000.0)
     text = st.feed(np.asarray(iq)) + st.flush()

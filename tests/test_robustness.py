@@ -146,9 +146,9 @@ def test_ofdm_stream_noise_buffer_bounded_and_straddle_recovers():
 def test_psk31_stream_nan_then_text():
     s = sdr.Psk31Stream.new_bpsk(8000.0)
     assert s.feed(np.full(60000, np.nan + 1j * np.nan, np.complex64)) == ""
-    iq = np.asarray(sdr.bpsk31_mod_text("CQ CQ DE K5TPU", 8000.0))
+    iq = np.asarray(sdr.bpsk31_mod_text("CQ CQ DE K5GPU", 8000.0))
     text = s.feed(iq) + s.feed(np.zeros(4000, np.complex64))
-    assert "CQ CQ DE K5TPU" in text
+    assert "CQ CQ DE K5GPU" in text
 
 
 def test_new_mode_receivers_handle_silence_and_tiny_inputs():
